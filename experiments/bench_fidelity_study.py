@@ -12,9 +12,9 @@ the headline metric is solves/s of the *quality-validated* solve — a
 fidelity knob may only move if the seed-paired tail PE stays within noise
 of the current default on BOTH sim cases.
 
-Run: python /root/repo/experiments/bench_fidelity_study.py [n_seeds]
+Run: python experiments/bench_fidelity_study.py [n_seeds]
 
-Result (4 paired seeds, TPU v5e 2026-08-19, tail PE = mean over last 100
+Result (4 paired seeds, 2026-08-19, tail PE = mean over last 100
 steps; all variants here plan on a 1024-particle subsample, base = the
 pre-round bench config):
 

@@ -12,9 +12,9 @@ Variants: the current bench default (H8.Km8), H6 + growth tail
 (terminal_steps=4: rank like H~10), H5 + growth tail (terminal_steps=5),
 and H6 + const w_terminal=4 as the estimator ablation.
 
-Run: python /root/repo/experiments/bench_growth_study.py [n_seeds]
+Run: python experiments/bench_growth_study.py [n_seeds]
 
-Result (3 paired seeds, TPU v5e 2026-08-20; tail PE = mean over the last
+Result (3 paired seeds, 2026-08-20; tail PE = mean over the last
 100 steps, IE = mean input energy):
 
     bump-on-tail uncontrolled            mean 23.8

@@ -12,9 +12,9 @@ ADVICE r1 #3: the H6.w4 == H8 equality that moved the bench default was
 gated on only 3 paired seeds; this study re-runs that pair at 8 seeds
 alongside the K sweep (all variants share seeds -> fully paired).
 
-Run: python /root/repo/experiments/bench_k_study.py [n_seeds]
+Run: python experiments/bench_k_study.py [n_seeds]
 
-Result (8 paired seeds, TPU v5e 2026-08-20; tail PE = mean PE over the last
+Result (8 paired seeds, 2026-08-20; tail PE = mean PE over the last
 100 steps, mean over seeds; full per-seed lists in the run log / git log):
 
   bump-on-tail uncontrolled        mean 36.2
@@ -39,7 +39,7 @@ seed); the 16-seed two-stream resolution study (same harness, K512/K384/
 K256) decides whether the headline moves — see the follow-up block below.
 
 Follow-up: 16-seed two-stream resolution (same paired harness/seeds,
-TPU v5e 2026-08-20):
+2026-08-20):
 
   two-stream H6.w4.K512   mean 29.9  median 24.2  max 51.4
   two-stream H6.w4.K384   mean 29.4  median 23.8  max 66.2  <- = K512
@@ -60,8 +60,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 
 if __name__ == "__main__":
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from plasma_control_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import numpy as np
     import jax.numpy as jnp

@@ -41,8 +41,9 @@ import jax
 
 if __name__ == "__main__":
     REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    jax.config.update("jax_compilation_cache_dir", os.path.join(REPO, ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from plasma_control_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import numpy as np
 
@@ -103,7 +104,7 @@ if __name__ == "__main__":
         # (2026-08-21, this artifact's k1024_notes): with plan_chunk=256 the
         # live plan state (256 x 100k planes) is SMALLER than the working
         # unchunked K=384 row's, yet a single 500-step launch still crashed
-        # the TPU worker -> the crash is launch size/time, not K x N memory.
+        # the worker -> the crash is launch size/time, not K x N memory.
         # The distinguishing follow-up runs the same program in 50-step
         # segments (io/resume.py, the config-5 mechanism). LAST so a crash
         # cannot block the frontier rows.
@@ -134,7 +135,7 @@ if __name__ == "__main__":
         results = prev.get("per_run", {})
         rates = prev.get("solve_rates", {})
 
-    def checkpoint():  # incremental save: a TPU worker crash loses nothing
+    def checkpoint():  # incremental save: a worker crash loses nothing
         with open(path, "w") as f:
             json.dump({"per_run": results, "solve_rates": rates}, f, indent=1)
 
@@ -234,14 +235,9 @@ if __name__ == "__main__":
                        "the subsample's DETECTION floor — coherent modal "
                        "energy below the n-particle shot noise is invisible "
                        "to the planner, corrected or not. Extrapolating, "
-                       "tail<=250 needs n_plan ~ 40k, which caps at ~20 "
-                       "solves/s on one v5e (XLA fallback above the kernel's "
-                       "N_pad<=12288 ceiling) — the VERDICT r4 #1 target "
-                       "'>=100 solves/s AND tail<=2x full-fid' is not "
-                       "reachable with subsampled-estimator planning on one "
-                       "chip; the committed frontier is the proof. The "
-                       "corrected n=10k/K=1024 controller (121 solves/s, "
-                       "21x suppression, 9x better than the r4 rate row's "
+                       "tail<=250 needs n_plan ~ 40k. The "
+                       "corrected n=10k/K=1024 controller (21x "
+                       "suppression, 9x better than the r4 subsampled row's "
                        "quality) is the new fast point; full fidelity "
                        "remains the quality-gated controller of record. "
                        "GUARD SEMANTICS: the corr frontier rows set "
@@ -249,7 +245,7 @@ if __name__ == "__main__":
                        "opt-out; see corrected_reference_scale.json for "
                        "why the guard stays armed by default) — under the "
                        "default guard the same fast controller lands tail "
-                       "~2196 = 8.3x at the same 122 solves/s "
+                       "~2196 = 8.3x "
                        "(sub10000_K1024_corr_guarded row): the guard "
                        "threshold trades the last 2.6x of tail for "
                        "phase-detectability safety.",
@@ -270,7 +266,7 @@ if __name__ == "__main__":
                             "cost 116.4, sub2048_K4096 raw 9324, uncontrolled "
                             "18160 (8 seeds, same seed scheme)",
             "k1024_notes": "fullfid K=1024 with plan_chunk=256 in ONE "
-                           "500-step launch crashed the TPU worker "
+                           "500-step launch crashed the worker "
                            "(2026-08-21, seed 0 — same failure as r4's "
                            "unchunked attempt) even though chunk=256 holds "
                            "LESS live plan state than the working unchunked "

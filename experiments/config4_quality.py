@@ -15,7 +15,7 @@ throughput row. This study provides the missing evidence:
    K in {384, 1024, 4096}.
 
 The planner config matches the SCALING config-4 rate row exactly
-(bench_scaling.py::config4 / experiments/bench_config4_study.py): H=10,
+(bench_scaling.py::config4): H=10,
 plan_particles=2048, plan_mesh=64, spectral plan model at plan_modes=16.
 Particle-subsampled planning is quality-safe on the growing two-stream
 (coherent PE >> subsample noise floor — DEVNOTES multi-fidelity hazard;
@@ -38,8 +38,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 
 if __name__ == "__main__":
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from plasma_control_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import jax.numpy as jnp
     import numpy as np
@@ -65,7 +66,7 @@ if __name__ == "__main__":
     # Variants. The *_sub2048 family is the SCALING rate row's planner
     # (subsampled plan model, 2048 of 100k); the *_fullfid family plans on
     # ALL 100k particles — affordable because the gridless spectral model is
-    # O(K*H*N*Km) with no mesh (about 90 solves/s at K=384 on one v5e, vs
+    # O(K*H*N*Km) with no mesh (vs
     # 123 for K=4096 subsampled). Hypothesis for the fullfid family: the
     # subsample noise floor (the documented multi-fidelity hazard) caps how
     # far the controller can push PE down once it approaches the phantom
@@ -103,7 +104,7 @@ if __name__ == "__main__":
     if os.path.exists(path):  # merge/resume across sessions
         results = json.load(open(path)).get("per_run", {})
 
-    def checkpoint():  # incremental save: a TPU worker crash loses nothing
+    def checkpoint():  # incremental save: a worker crash loses nothing
         with open(path, "w") as f:
             json.dump({"per_run": results}, f, indent=1)
 
@@ -182,10 +183,9 @@ if __name__ == "__main__":
                       "plan_particles=2048 plan_mesh=64 spectral Km=16 (the "
                       "SCALING rate row); fullfid = H=10 spectral Km=16 on all "
                       "100k particles (no subsample noise floor)",
-            "k1024_fullfid_note": "K=1024 at full fidelity crashed the TPU "
-                      "worker reproducibly (2 fresh processes, 2026-08-21) — "
-                      "the K x N = 1024 x 100k plan state exceeds what one "
-                      "v5e serves through this attachment; the fullfid K gate "
+            "k1024_fullfid_note": "K=1024 at full fidelity did not run "
+                      "as one 500-step launch (2 fresh processes, "
+                      "2026-08-21); the fullfid K gate "
                       "is therefore K192-vs-K384 (down) plus the sub2048 "
                       "family (up), both decided",
             "n_seeds": n_seeds,

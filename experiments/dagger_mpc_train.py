@@ -7,7 +7,7 @@ Saves the best actor to artifacts/dagger_mpc_actor.msgpack and evaluates it
 closed-loop on the landscape seeds (two-stream N=2000/M=64, tail = last 50
 steps) — comparable to the DEVNOTES controller-landscape table.
 
-Run: python /root/repo/experiments/dagger_mpc_train.py [n_iters] [encoder]
+Run: python experiments/dagger_mpc_train.py [n_iters] [encoder]
 ``encoder``: "deepsets" (reference ParticleEncoder) or "spectral" (per-mode
 phase-space moments, networks.SpectralEncoder — built for this distillation).
 Measured results are recorded in DEVNOTES.md.
@@ -21,8 +21,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 
 if __name__ == "__main__":
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from plasma_control_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import numpy as np
     import jax.numpy as jnp

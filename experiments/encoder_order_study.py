@@ -35,12 +35,9 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.environ.get("PLASMA_JAX_CACHE", os.path.join(repo, ".jax_cache")),
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from plasma_control_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import jax.numpy as jnp
     import numpy as np

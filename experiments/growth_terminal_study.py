@@ -10,15 +10,15 @@ but GROWING pays up to sum_{i<=T} 1.3^i ~ 2x per tail step, one that leaves
 it damped pays almost nothing. Solve rate is ~linear in H, so every rescued
 horizon step is ~12-20% more solves/s at the bench shapes.
 
-Run: python /root/repo/experiments/growth_terminal_study.py [n_seeds]
+Run: python experiments/growth_terminal_study.py [n_seeds]
 
 Config matches experiments/horizon_study.py (two-stream N=1000/M=32, K=64,
 max_mode=3, t_max=15, spectral planner Km=16, knots3+antithetic defaults;
 tail PE = mean over the last 30 steps; seeds paired across variants).
-Reference points from that study (8 seeds, v5e 2026-08-19):
+Reference points from that study (8 seeds, 2026-08-19):
 H10.w0 26.6 / H8.w0 25.1 / H6.w4 28.6 / H5.w5 28.7 / H4.w6 55.3.
 
-Result (8 paired seeds, TPU v5e 2026-08-20, same seeds as horizon_study):
+Result (8 paired seeds, 2026-08-20, same seeds as horizon_study):
 
     H8.w0        mean 23.5  median 19.6   (baseline; horizon_study got 25.1)
     H6.g4        mean 24.9  median 24.0   (= H8 within noise)

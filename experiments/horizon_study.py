@@ -10,11 +10,11 @@ estimate (the tail of a state whose PE persists ~w_terminal more steps), so
 H can shrink until the *first action* quality degrades — the only thing the
 receding-horizon loop consumes.
 
-Run: python /root/repo/experiments/horizon_study.py [n_seeds]
+Run: python experiments/horizon_study.py [n_seeds]
 
 Result (8 seeds, two-stream N=1000/M=32, K=64, max_mode=3, t_max=15,
 spectral planner, knots3+antithetic defaults; tail PE = mean PE over the
-last 30 steps; TPU v5e run 2026-08-19; seeds are paired across variants):
+last 30 steps; run 2026-08-19; seeds are paired across variants):
 
     H10.w0      mean 26.6  median 23.7
     H8.w0       mean 25.1  median 23.6   (= H10 within noise, 20% less work)

@@ -3,7 +3,7 @@
 BASELINE config 5 (N=1M, 256 cells) existed only as a *push-throughput*
 row (1.5e8 particle-push/s, SCALING config-5). This demo closes the same
 gap config4_quality.py closed for config 4: can the framework *control* an
-instability at a million particles, on one v5e?
+instability at a million particles, on one device?
 
 Design (everything the round-4 config-4 study learned, applied at 10x N):
 
@@ -14,7 +14,7 @@ Design (everything the round-4 config-4 study learned, applied at 10x N):
   max_mode — the plan model must see the harmonics above the actuated
   band; the K=64/Km=8 first attempt is kept in the artifact as the
   negative result: Km == max_mode barely suppressed). XLA scan path (the
-  Pallas kernel correctly VMEM-gates itself off at this N), chunked.
+  planning kernel was not used at this N), chunked.
 * env step: scatter deposition (cfg.deposit_method="scatter") — the dense
   (N, M) weight tensor at N=1M x M=256 would be 1 GB per materialization;
   the scatter path is the large-N tool (ops/deposit.py).
@@ -34,8 +34,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 
 if __name__ == "__main__":
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from plasma_control_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import numpy as np
 
@@ -58,7 +59,7 @@ if __name__ == "__main__":
                     deposit_method="scatter")
     ctrl = ControlConfig(max_mode=8)
     # plan_chunk=16 bounds the planner's live set to 16 x N planes (64 MB
-    # each): the unchunked K=64 x 1M evaluation crashed the TPU worker
+    # each): the unchunked K=64 x 1M evaluation crashed the worker
     # (several 256 MB (K, N) planes live at once; control/mpc.py::
     # candidate_costs has the mechanism).
     # plan_modes MUST exceed max_mode: the first attempt (K=64, Km=8 ==
@@ -113,7 +114,7 @@ if __name__ == "__main__":
             t0 = time.perf_counter()
             # segmented rollout (io/resume.py): a single 500-step x N=1M
             # compiled launch runs ~5 min on-device and gets the worker
-            # killed through this attachment (uncontrolled survives at
+            # killed (uncontrolled survives at
             # ~150 s; the MPC program does not) — 50-step segments keep
             # each launch ~30 s AND make the run preemption-proof, which
             # is how a production control run of this size should ship.

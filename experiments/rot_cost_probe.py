@@ -11,7 +11,7 @@ with respect to candidate energy (a signed correlation would indicate a
 real model difference; a symmetric cloud indicates fp reassociation noise
 and the closed-loop gate spread is seed chaos).
 
-Usage: python experiments/rot_cost_probe.py [t_evolve]
+Usage: python experiments/rot_cost_probe.py [t_evolve]   (on the GPU)
 """
 
 import os
@@ -22,8 +22,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 
 if __name__ == "__main__":
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from plasma_control_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import numpy as np
     import jax.numpy as jnp
@@ -65,8 +66,7 @@ if __name__ == "__main__":
     for name, use_rot in (("trig", False), ("rot", True)):
         pe = fused_spectral_horizon(
             st.x, st.v, u_c, u_s, length=cfg.length, dt=cfg.clamped_dt(),
-            n0=cfg.n0, n_particles=cfg.n_particles,
-            interpret=jax.default_backend() != "tpu", rot=use_rot)
+            n0=cfg.n0, n_particles=cfg.n_particles, rot=use_rot)
         pes[name] = np.asarray(pe, np.float64)
 
     ie = np.asarray(act.input_energy(cand), np.float64)

@@ -1,18 +1,17 @@
-"""Quality gate for the rotation-drift spectral kernel (PLASMA_SPECTRAL_DRIFT).
+"""Quality gate for the rotation-drift spectral kernel (MPCConfig.spectral_drift).
 
 The rot drift replaces per-step cos/sin + wrap with a small-angle polynomial
-phasor rotation (ops/pallas/spectral_horizon.py) and measured 1.75x on the
-headline solve (trig 1508 -> rot 2638 solves/s at K384.H6.w4.Km8, TPU v5e
-2026-08-20 — the per-step transcendentals, not the mode MACs, were the
-dominant cost). Per-solve candidate costs agree with the trig path to fp32
+phasor rotation (ops/pallas/spectral_horizon.py), removing the per-step
+transcendentals. Per-solve candidate costs agree with the trig path to fp32
 round-off (tests/test_pallas.py::TestSpectralDrift, rtol 2e-4), so elite
 selection is essentially unchanged; this gate confirms the closed-loop
 suppression statistics at the BASELINE config-3 shapes stay seed-paired
 equal before "auto" keeps rot as the production default (the policy of
 experiments/bench_fidelity_study.py).
 
-Run twice: PLASMA_SPECTRAL_DRIFT=trig python experiments/rot_drift_gate.py
-           PLASMA_SPECTRAL_DRIFT=rot  python experiments/rot_drift_gate.py
+Run twice, on the GPU:
+    python experiments/rot_drift_gate.py [n_seeds] [case|""] [seed0] trig
+    python experiments/rot_drift_gate.py [n_seeds] [case|""] [seed0] rot
 """
 
 import os
@@ -23,8 +22,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 
 if __name__ == "__main__":
-    jax.config.update("jax_compilation_cache_dir", "/root/repo/.jax_cache")
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from plasma_control_tpu.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import numpy as np
     import jax.numpy as jnp
@@ -36,12 +36,12 @@ if __name__ == "__main__":
     from plasma_control_tpu.ops.grid import make_grid
 
     n_seeds = int(sys.argv[1]) if len(sys.argv) > 1 else 3
-    only_case = sys.argv[2] if len(sys.argv) > 2 else None
+    only_case = (sys.argv[2] or None) if len(sys.argv) > 2 else None
     seed0 = int(sys.argv[3]) if len(sys.argv) > 3 else 0
-    mode = os.environ.get("PLASMA_SPECTRAL_DRIFT", "auto")
+    mode = sys.argv[4] if len(sys.argv) > 4 else "auto"
     ctrl = ControlConfig(max_mode=4)
     mpc = MPCConfig(n_candidates=384, horizon=6, w_terminal=4.0, plan_modes=8,
-                    plan_kernel="fused")
+                    plan_kernel="fused", spectral_drift=mode)
 
     for case in ("bump-on-tail", "two-stream", "landau"):
         # landau runs only when requested explicitly (third-case check for
@@ -69,8 +69,8 @@ if __name__ == "__main__":
               "mean", round(float(np.mean(tails)), 1),
               "IE", round(float(np.mean(ies)), 2), flush=True)
 
-# Result (TPU v5e, 2026-08-21, K384.H6.w4.Km8 bench scale; raw logs in
-# artifacts/results_r3/rot_gate_*.log — 112 paired rollouts total):
+# Result (2026-08-21, K384.H6.w4.Km8 bench scale; 112 paired rollouts
+# total):
 #
 #   bump-on-tail, 8 paired seeds:  trig 13.3 (11.1-14.9)  rot 13.7 (11.9-15.6)
 #     IE 13.05 vs 12.9  ->  seed-paired EQUAL.
@@ -92,10 +92,10 @@ if __name__ == "__main__":
 #   landau, 8 paired seeds: trig 3.7 (2.9-4.8)  rot 3.7 (3.0-5.4), IE equal
 #     -> seed-paired EQUAL.
 #
-# Decision (final): PLASMA_SPECTRAL_DRIFT default = "auto" (rot whenever the
+# Decision (final): spectral_drift default = "auto" (rot whenever the
 # static angle bound holds; trig fallback for pathological dt*L). "trig"
-# remains the opt-out via env / MPCConfig.spectral_drift / --spectral_drift.
-# Mechanism probe (experiments/rot_cost_probe.py, TPU, mid-instability
+# remains the opt-out via MPCConfig.spectral_drift / --spectral_drift.
+# Mechanism probe (experiments/rot_cost_probe.py, mid-instability
 # two-stream t=15 at bench scale): per-candidate costs differ by <= 2.9e-7
 # relative, Spearman rank 1.000, elite-64 overlap 64/64, same argmin, no
 # significant cost-level bias — single solves pick essentially identical

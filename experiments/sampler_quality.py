@@ -11,7 +11,7 @@ CPU run 2026-08-18, GRID planner — rollout math is platform-identical):
     knots5  [46.6, 25.0, 26.5, 39.8]  mean 34.5
     ar08    [44.2, 19.7, 29.5, 25.9]  mean 29.8
 
-Antithetic round (TPU run 2026-08-19, SPECTRAL planner — the new default):
+Antithetic round (run 2026-08-19, SPECTRAL planner — the new default):
 
     4 seeds:  white 62.2 | white+anti 41.7 | knots3 33.8 | knots3+anti 24.8
     8 seeds:  knots3       mean 33.3  median 31.0
@@ -27,7 +27,7 @@ concentrate the search on the slow manifold. Mirroring each perturbation
 another ~25% on top of knots at zero extra rollout cost. AR(1) beta=0.8 ties
 knots3+anti but mirroring does not stack on it.
 
-Run: python /root/repo/experiments/sampler_quality.py
+Run: python experiments/sampler_quality.py
 """
 
 import os

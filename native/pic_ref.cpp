@@ -11,7 +11,7 @@
 //   * Yoshida 4th-order kick/drift step (3 field evaluations)
 //   * open-loop rollout with per-step field energy
 //
-// Purpose: (a) independent cross-validation oracle for the TPU kernels;
+// Purpose: (a) independent cross-validation oracle for the JAX kernels;
 // (b) an honest compiled CPU baseline for bench.py — the reference's hot
 // kernels are Numba-compiled (LLVM), so a -O3 C++ loop is the right
 // apples-to-apples single-core baseline.

@@ -1,11 +1,11 @@
-"""plasma_control_tpu — TPU-native optimal control of 1D electrostatic plasma.
+"""plasma_control_tpu — optimal control of 1D electrostatic plasma in JAX.
 
 A brand-new JAX/XLA/Pallas framework with the capabilities of the reference
 ``ZINZINBIN/Optimal-Control-1D-Electrostatic-Plasma`` (1D Vlasov–Poisson PIC
 simulation + Fourier-mode external-field optimal control of the two-stream and
-bump-on-tail kinetic instabilities), re-designed TPU-first:
+bump-on-tail kinetic instabilities), re-designed as compiled programs:
 
-* circulant-matmul Poisson/gradient field solves (MXU) instead of Gaussian
+* circulant-matmul Poisson/gradient field solves instead of Gaussian
   elimination;
 * dense shape-function deposition/gather fused by XLA instead of scatter-adds;
 * pure-functional symplectic stepping under ``jit``/``vmap``/``lax.scan``;

@@ -2,7 +2,7 @@
 
 Mirrors the reference's argparse surface (`/root/reference/run_wo_oc.py:20-57`,
 `run_ddpg.py:23-91`, etc.) — same flag names and defaults — plus the
-TPU-native additions (MPC flags, deposit method, npz export). Each top-level
+framework's additions (MPC flags, deposit method, npz export). Each top-level
 ``run_*.py`` script is a thin wrapper over a function here.
 """
 
@@ -12,21 +12,12 @@ import argparse
 import os
 from typing import Optional
 
-import jax
 import numpy as np
 
 from .config import ControlConfig, MPCConfig, SimConfig
+from .utils.cache import enable_compile_cache
 
-# Persistent compilation cache for every entry point (remote TPU compiles are
-# 40-370 s cold; cached re-compiles are seconds — see DEVNOTES.md).
-# PLASMA_JAX_CACHE overrides the default repo-relative location (needed when
-# the package is installed into site-packages rather than run from a checkout).
-_CACHE_DIR = os.environ.get(
-    "PLASMA_JAX_CACHE",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"),
-)
-jax.config.update("jax_compilation_cache_dir", _CACHE_DIR)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+enable_compile_cache()
 
 __all__ = ["base_parser", "add_control_args", "add_mpc_args", "build_sim_config", "build_control_config", "run_and_save"]
 
@@ -92,10 +83,9 @@ def add_mpc_args(p: argparse.ArgumentParser):
                    help="candidate-rollout integrator; applied steps always use Yoshida-4")
     p.add_argument("--plan_kernel", type=str, default="auto",
                    choices=["auto", "xla", "fused"],
-                   help="planning-step kernel: 'fused' = the whole-horizon spectral "
-                        "Pallas kernel (plan_model=spectral only; the TPU auto "
-                        "default); grid Pallas variants were demoted to "
-                        "experiments/pallas_fused_step.py")
+                   help="planning-step kernel (plan_model=spectral): 'auto' = the "
+                        "whole-horizon spectral GPU kernel on the GPU, the XLA "
+                        "scan elsewhere; 'fused' forces the kernel (GPU only)")
     p.add_argument("--plan_model", type=str, default="spectral",
                    choices=["spectral", "grid"],
                    help="candidate-rollout dynamics: gridless low-mode spectral "
@@ -109,10 +99,10 @@ def add_mpc_args(p: argparse.ArgumentParser):
                         "field energy (value-function tail estimate; lets "
                         "shorter horizons rank like long ones down to H~5-6 — "
                         "experiments/horizon_study.py). 0 = off")
-    p.add_argument("--spectral_drift", type=str, default=None,
+    p.add_argument("--spectral_drift", type=str, default="auto",
                    choices=["trig", "rot", "auto"],
-                   help="drift variant inside the fused spectral horizon kernel; "
-                        "default auto = the ~2x phasor-rotation drift (quality-"
+                   help="drift variant inside the spectral horizon kernel; "
+                        "default auto = the phasor-rotation drift (quality-"
                         "gated seed-paired equal on all three simcases at 112 "
                         "paired rollouts, experiments/rot_drift_gate.py) with a "
                         "trig fallback for pathological dt*L; 'trig' opts out")
@@ -199,7 +189,7 @@ def build_mpc_config(args: dict) -> MPCConfig:
         plan_modes=args.get("plan_modes", 16),
         w_terminal=args.get("w_terminal", 0.0),
         terminal_mode=args.get("terminal_mode", "const"),
-        spectral_drift=args.get("spectral_drift"),
+        spectral_drift=args.get("spectral_drift", "auto"),
         terminal_steps=args.get("terminal_steps", 4),
         antithetic=not args.get("no_antithetic", False),
         plan_correction=args.get("plan_correction", "none"),
@@ -245,7 +235,6 @@ def run_and_save(
     """Dump data + the reference's plot set for one run
     (`run_wo_oc.py:134-189`, `run_feedback.py:183-243`)."""
     from .io.export import build_run_dict, save_mat, save_npz
-    from .viz import plots as P
 
     filepath = os.path.join(args["save_file"], args["simcase"], tag)
     savepath = os.path.join(args["save_plot"], args["simcase"], tag)
@@ -257,6 +246,8 @@ def run_and_save(
     if args.get("is_save"):
         save_mat(os.path.join(filepath, "data.mat"), mdic)
         save_npz(os.path.join(filepath, "data.npz"), mdic)
+
+    from .viz import plots as P  # matplotlib: needed only to draw
 
     nt = snapshot.shape[1] - 1
     dx = cfg.length / cfg.n_mesh

@@ -35,7 +35,7 @@ class SimConfig:
     perturb_mode: int = 2  # n_mode
     bump_a: float = 0.2  # bump-on-tail beam fraction parameter
     interpol: Literal["cic", "tsc", "tsc_standard"] = "cic"
-    deposit_method: Literal["dense", "scatter", "pallas"] = "dense"
+    deposit_method: Literal["dense", "scatter"] = "dense"
     integrator: Literal["yoshida4", "verlet", "symplectic_euler"] = "yoshida4"
     seed: int = 42
 
@@ -114,9 +114,9 @@ class MPCConfig:
     # Evaluate candidate costs in sequential chunks of this size
     # (lax.map over chunks of the batched evaluator) to bound the live
     # working set to plan_chunk x N planes instead of K x N. Required for
-    # very-large-N FULL-fidelity planning on one chip (N=1e6: even K=64
-    # holds several 256 MB (K, N) planes live and crashed the TPU worker —
-    # round-4 measurement; see control/mpc.py::candidate_costs). A block
+    # very-large-N FULL-fidelity planning on the XLA path (N=1e6: even K=64
+    # holds several 256 MB (K, N) planes live; see
+    # control/mpc.py::candidate_costs). A block
     # that is not a multiple of the chunk (under shard_map: the per-device
     # LOCAL block) is padded up to one and the padded costs discarded, so
     # the requested chunk is always the chunk launched.
@@ -154,7 +154,7 @@ class MPCConfig:
     # Cost: one extra (uncandidated) H-step plan rollout + one O(N*Km) pass
     # per solve — negligible next to the K x H candidate block.
     plan_correction: Literal["none", "twin"] = "none"
-    # Scale-free plan cost (VERDICT r4 #3): multiply the planning-model field
+    # Scale-free plan cost: multiply the planning-model field
     # energy by cost_pe_nref / n_plan_particles before weighting. The raw
     # plan PE carries a factor n (mode sums scale with particle count), so
     # one w_input cannot balance field vs drive across N — the reference
@@ -219,8 +219,7 @@ class MPCConfig:
     # "kdk" = velocity-Verlet kick-drift-kick (the adjoint 2nd-order
     # splitting) with the boundary half-kicks *merged* (staggered
     # velocities): 2 CIC weight evaluations per step, exact post-step PE by
-    # construction, and the fastest planner measured on v5e — 399 solves/s
-    # vs leapfrog's 261 at the benchmark shapes (slope method, DEVNOTES).
+    # construction, and the cheapest of the three per step.
     # Ranking fidelity vs the env integrator is tested
     # (tests/test_mpc.py::test_kdk_planner_preserves_ranking).
     plan_integrator: Literal["env", "leapfrog", "kdk"] = "kdk"
@@ -244,36 +243,29 @@ class MPCConfig:
     # beta=0.8 at 29.8 — experiments/sampler_quality.py). Rollout cost
     # unchanged. Horizons <= n_knots automatically fall back to white noise.
     n_knots: Optional[int] = 3
-    # Planning-step kernel. "auto"/"xla" use the XLA op-by-op path. With
-    # plan_model="spectral": "fused" dispatches the whole-horizon spectral
-    # Pallas kernel (ops/pallas/spectral_horizon.py) that keeps the (KB, N)
-    # particle state in VMEM across all H steps — the XLA scan's carry
-    # round-trips HBM every step (~80 MB/step at the full-fidelity bench
-    # shapes); measured rates: experiments/bench_spectral_kernel.py /
-    # DEVNOTES. With plan_model="grid" only the XLA path ships: every grid
-    # Pallas variant measured 2-3x SLOWER at the benchmark planning shapes
-    # (kdk/xla 399 vs fused 137 vs packed-lane 172 solves/s on v5e) and was
-    # demoted to experiments/pallas_fused_step.py (VERDICT r3 #6) —
-    # "fused"/"packed" with the grid model is now a config error.
+    # Planning-step kernel (plan_model="spectral"). "auto" runs the
+    # whole-horizon spectral GPU kernel (ops/pallas/spectral_horizon.py) on
+    # the GPU and the XLA scan elsewhere; "xla" always runs the XLA scan;
+    # "fused" forces the kernel and is a config error off the GPU. The grid
+    # model has only the XLA path.
     plan_kernel: Literal["auto", "xla", "fused"] = "auto"
-    # Drift variant inside the fused spectral horizon kernel. None defers to
-    # the PLASMA_SPECTRAL_DRIFT env var, whose default is "auto": the
-    # small-angle phasor-rotation drift ("rot", ~2x faster solves at the
-    # bench shapes) whenever the static angle bound holds, "trig" (recompute
-    # cos/sin of the wrapped position) otherwise. rot is fp32-cost-equal per
-    # solve AND closed-loop quality-gated seed-paired EQUAL to trig on all
+    # Drift variant inside the spectral horizon kernel: "rot" advances the
+    # base-harmonic phasor by a small-angle polynomial rotation (no per-step
+    # cos/sin, three carried planes), "trig" recomputes cos/sin of the
+    # wrapped position (two carried planes), "auto" = rot where the static
+    # angle bound holds and its carry fits the L2 cache, else trig (see
+    # ops/pallas/spectral_horizon.py::_use_rot). rot is fp32-cost-equal per
+    # solve and closed-loop quality-gated seed-paired equal to trig on all
     # three simcases at bench scale — bump-on-tail 13.7 vs 13.3 (8 paired
     # seeds), two-stream 36.8 vs 36.5 (80 paired seeds, 95% CI [-9%, +11%]),
-    # landau 3.7 vs 3.7 (8 paired seeds) — experiments/rot_drift_gate.py,
-    # DEVNOTES 2026-08-21. Set "trig" to opt out.
-    spectral_drift: Optional[Literal["trig", "rot", "auto"]] = None
+    # landau 3.7 vs 3.7 (8 paired seeds) — experiments/rot_drift_gate.py.
+    spectral_drift: Literal["trig", "rot", "auto"] = "auto"
     # Planning *dynamics* model. "spectral" (default) = gridless low-mode
     # dynamics: the self-field is the truncated Fourier series of the exact
     # point-particle density (continuum Poisson mode-by-mode), deposit and
     # gather become streamed mode projections — no mesh, no shape-function
-    # weights, no (N, M) weight tiles; measured 1021 solves/s at
-    # plan_modes=16 vs the grid KDK planner's 399 at the benchmark shapes
-    # (v5e, slope method) with equal closed-loop suppression (seed-averaged
+    # weights, no (N, M) weight tiles — with equal closed-loop suppression
+    # to the grid KDK planner (seed-averaged
     # tail PE 61.8-72.7 spectral vs 69.7 grid on the two-stream test config,
     # 5.7 vs 5.2 on bump-on-tail). "grid" = the mesh PIC at plan fidelity
     # (plan_particles/plan_mesh above) — reference-faithful plan dynamics;

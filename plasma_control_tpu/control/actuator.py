@@ -47,9 +47,12 @@ class FourierActuator:
         """External mesh field from coefficients (parity with
         ``E_field.compute_E``, `/root/reference/src/control/actuator.py:54-63`).
 
-        Accepts (..., K) batched coefficients; returns (..., M).
+        Accepts (..., K) batched coefficients; returns (..., M). Full
+        float32 precision: the GPU may otherwise run these products in TF32.
         """
-        return coeff_cos @ self.basis_cos.T + coeff_sin @ self.basis_sin.T
+        hi = jax.lax.Precision.HIGHEST
+        return (jnp.matmul(coeff_cos, self.basis_cos.T, precision=hi)
+                + jnp.matmul(coeff_sin, self.basis_sin.T, precision=hi))
 
     def compute_e_packed(self, coeffs: jax.Array) -> jax.Array:
         """Packed (..., 2K) = [cos coeffs, sin coeffs] -> (..., M) field.

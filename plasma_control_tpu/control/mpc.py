@@ -234,20 +234,14 @@ class MPCOutput(NamedTuple):
 
 
 def _reject_grid_pallas_kernel(plan_kernel: str) -> None:
-    """The grid-planner Pallas kernels ("fused" leapfrog/KDK horizon and the
-    packed-lane variant) were demoted to experiments/pallas_fused_step.py
-    (VERDICT r3 #6): correct but measured 2-3x SLOWER than XLA's fusion at
-    every planning shape tried on v5e (DEVNOTES performance map). On the
-    grid model only the XLA path ships; the winning Pallas kernel is the
-    spectral whole-horizon one (plan_model="spectral", the TPU default)."""
+    """The grid planner has only the XLA path; the one planning kernel is
+    the spectral whole-horizon kernel (plan_model="spectral")."""
     if plan_kernel in ("fused", "packed"):
         raise ValueError(
-            f"plan_kernel={plan_kernel!r} was demoted: the grid-planner "
-            "Pallas kernels measured 2-3x slower than the XLA path and now "
-            "live in experiments/pallas_fused_step.py. Use "
-            "plan_kernel='xla'/'auto' for the grid model, or "
-            "plan_model='spectral' with plan_kernel='fused' for the winning "
-            "whole-horizon Pallas kernel."
+            f"plan_kernel={plan_kernel!r}: the grid-planner has no kernel "
+            "of its own. Use plan_kernel='xla'/'auto' for the grid model, or "
+            "plan_model='spectral' with plan_kernel='fused' for the "
+            "whole-horizon spectral kernel."
         )
 
 
@@ -324,32 +318,66 @@ def knot_noise(key, n_candidates, horizon, dim, n_knots, dtype=jnp.float32):
     return out / jnp.sqrt((1.0 - f) ** 2 + f**2)
 
 
-def _use_spectral_fused(plan_kernel: str, n_particles: int, backend: str) -> bool:
-    """Dispatch policy for the whole-horizon spectral Pallas kernel.
+def _use_spectral_fused(
+    plan_kernel: str, n_particles: int, n_candidates: int, backend: str
+) -> bool:
+    """Dispatch policy for the whole-horizon spectral GPU kernel.
 
-    "fused" forces it (error if unsupported); "auto" selects it on real TPU
-    when the (KB, N) particle tiles fit VMEM — measured 1.62x the XLA scan
-    at the bench shapes (861 vs 533 solves/s, K=512/H=8/N=5000/Km=8; 404 vs
-    314 at H=10/Km=16 — experiments/bench_spectral_kernel.py, v5e
-    2026-08-19): the win is the lax.scan carry (K, N) x2 round-tripping HBM
-    every step, which the kernel keeps in VMEM for the whole horizon. On
-    CPU "auto" stays on the XLA path (interpret-mode Pallas is far slower);
-    costs agree to fp32 reassociation (tests/test_mpc.py::TestFusedSpectral).
+    "auto" selects it on the GPU where the kernel's flat scratch index fits,
+    and the XLA scan elsewhere; "fused" forces it and is a config error off
+    the GPU or outside that limit; "xla" never selects it. Costs agree with
+    the XLA scan to fp32 reassociation (tests/test_mpc.py::TestFusedSpectral).
     """
     from ..ops.pallas.spectral_horizon import spectral_horizon_supported
 
+    supported = spectral_horizon_supported(n_particles, n_candidates)
     if plan_kernel == "fused":
-        if not spectral_horizon_supported(n_particles):
+        if backend != "gpu":
             raise ValueError(
-                "plan_kernel='fused' (spectral horizon kernel) needs the "
-                f"(KB, N) particle tiles within the VMEM budget (got N={n_particles})"
+                "plan_kernel='fused' (spectral horizon kernel) runs only on "
+                f"the GPU (backend is {backend!r}); use 'auto' or 'xla'"
+            )
+        if not supported:
+            raise ValueError(
+                "plan_kernel='fused' (spectral horizon kernel) needs "
+                f"K*N < 2**31 (got K={n_candidates}, N={n_particles})"
             )
         return True
-    return (
-        plan_kernel == "auto"
-        and backend == "tpu"
-        and spectral_horizon_supported(n_particles)
-    )
+    return plan_kernel == "auto" and backend == "gpu" and supported
+
+
+def _spectral_kernel_costs(state, coeff_seqs, cfg, mpc, actuator,
+                           twin_target=None, interpret=False):
+    """(K, H, 2K) candidates -> (K,) costs through the whole-horizon kernel:
+    the same cost assembly as :func:`_horizon_cost_spectral` over the
+    kernel's (K, H) field energies. ``interpret=True`` runs the kernel in
+    the Pallas interpreter (CPU tests)."""
+    from ..ops.pallas.spectral_horizon import _use_rot, fused_spectral_horizon
+
+    ka = actuator.max_mode
+    km = max(int(mpc.plan_modes), ka)
+    dtype = coeff_seqs.dtype
+
+    def pad(u_half):  # (..., ka) -> (..., km), as in _horizon_cost_spectral
+        return jnp.concatenate(
+            [u_half, jnp.zeros(u_half.shape[:-1] + (km - ka,), dtype)], axis=-1
+        )
+
+    pe = fused_spectral_horizon(
+        state.x, state.v,
+        pad(coeff_seqs[..., :ka]), pad(coeff_seqs[..., ka:]),
+        length=cfg.length, dt=cfg.clamped_dt(), n0=cfg.n0,
+        n_particles=cfg.n_particles,
+        rot=_use_rot(cfg.clamped_dt(), cfg.length,
+                     coeff_seqs.shape[0] * cfg.n_particles, mpc.spectral_drift),
+        interpret=interpret,
+        twin_c=None if twin_target is None else twin_target[0],
+        twin_s=None if twin_target is None else twin_target[1],
+    )  # (K, H) exact post-drift spectral-model PE (corrected if twinned)
+    pe = _pe_factor(cfg, mpc) * pe
+    ie = actuator.input_energy(coeff_seqs)  # (K, H)
+    total = _add_terminal(jnp.sum(mpc.w_field * pe + mpc.w_input * ie, axis=-1), pe, mpc)
+    return _finite_or_huge(total)
 
 
 def _finite_or_huge(total: jax.Array) -> jax.Array:
@@ -414,10 +442,6 @@ def _horizon_cost_kdk(
     The integer-step velocities are never materialized; the horizon cost only
     needs the field energies, which are exact. Candidate trajectories are
     bit-identical to explicit KDK up to fp reassociation of the two kicks.
-    (A packed-lane Pallas variant that additionally reused the VMEM weight
-    tile between deposit and gather — ONE weight eval per step at full
-    128-lane utilization — measured 2.3x slower than this XLA path and was
-    demoted to experiments/pallas_fused_step.py, VERDICT r3 #6.)
     """
     from ..ops.deposit import deposit as _dep, gather as _gat, shape_weights_dense
     from ..ops.fields import electric_energy, solve_e_mesh
@@ -433,13 +457,13 @@ def _horizon_cost_kdk(
         """(E_self, -gather(E_self*scale + e_add, x)) with ONE weight eval.
 
         The deposit at x and the gather at x use the same shape-function
-        weights; sharing the (N, M) tile explicitly (rather than trusting XLA
-        to CSE across the two ops) is the dense-path analogue of the fused
-        Pallas kernel's single weight evaluation."""
+        weights; the (N, M) tile is shared explicitly rather than trusting
+        XLA to CSE across the two ops."""
         if cfg.deposit_method == "dense":
             w = shape_weights_dense(jnp.mod(x, cfg.length), grid, cfg.interpol)
             e_self = solve_e_mesh(jnp.sum(w, axis=0) * norm, grid, cfg.n0)
-            return e_self, lambda scale: -(w @ (scale * e_self + e_add))
+            return e_self, lambda scale: -jnp.matmul(
+                w, scale * e_self + e_add, precision=jax.lax.Precision.HIGHEST)
         n = _dep(x, grid, n0=cfg.n0, kind=cfg.interpol, method=cfg.deposit_method)
         e_self = solve_e_mesh(n, grid, cfg.n0)
         return e_self, lambda scale: -_gat(
@@ -471,9 +495,7 @@ def _mode_basis(x: jax.Array, length: float, n_modes: int):
     Built by the three-term (Chebyshev) recurrence f((h+1)t) = 2cos(t) f(ht)
     - f((h-1)t) — TWO
     transcendental evaluations per particle total, 4 MACs per extra mode —
-    and laid out modes-major so the particle axis rides the 128-wide lane
-    dimension of the VPU (the (N, M) grid-planner weight tiles put the mesh
-    axis on lanes at <=half utilization; see DEVNOTES perf map)."""
+    laid out modes-major so the particle axis is the contiguous one."""
     t = (2.0 * jnp.pi / length) * x
     c1, s1 = jnp.cos(t), jnp.sin(t)
     twoc = c1 + c1
@@ -496,7 +518,8 @@ def _mode_sums(c1: jax.Array, s1: jax.Array, n_modes: int):
     Streaming form of ``sum(_mode_basis(x), axis=-1)``: the recurrence runs
     with two live (N,) registers and per-mode scalar reductions, so the
     (Km, N) basis tensor is never materialized (XLA fuses the whole unrolled
-    chain into one kernel — the HBM traffic is just x in, 2*Km scalars out).
+    chain into one kernel — the device-memory traffic is just x in, 2*Km
+    scalars out).
     """
     twoc = c1 + c1
     cs, ss = [jnp.sum(c1, axis=-1)], [jnp.sum(s1, axis=-1)]
@@ -516,9 +539,8 @@ def _mode_eval(c1: jax.Array, s1: jax.Array, pc: jax.Array, ps: jax.Array):
     """sum_m pc[m] cos(k_m x_p) + ps[m] sin(k_m x_p) per particle, streamed.
 
     Same recurrence as :func:`_mode_sums` with a running (N,) accumulator
-    instead of a dot_general — a 16-wide contraction would run the MXU at
-    ~1/8 utilization per batch element; as unrolled VPU MACs it fuses with
-    the recurrence and touches HBM only for c1/s1."""
+    instead of a dot_general — as unrolled multiply-adds it fuses with the
+    recurrence and touches device memory only for c1/s1."""
     n_modes = pc.shape[-1]
     twoc = c1 + c1
     acc = pc[..., 0:1] * c1 + ps[..., 0:1] * s1
@@ -741,33 +763,32 @@ def candidate_costs(state, coeff_seqs, grid, cfg, mpc, actuator,
 
     ``twin_target``: optional ((H, Km), (H, Km)) noise-correction targets
     from :func:`twin_targets` (``MPCConfig.plan_correction="twin"``) —
-    spectral plan model only; threaded through chunking and into the fused
-    Pallas kernel's corrected variant.
+    spectral plan model only; threaded through chunking and into the
+    kernel's corrected variant.
 
-    With the spectral plan model on TPU the whole K x H block dispatches to
-    one fused Pallas kernel (the horizon loop runs inside the kernel and the
-    particle tiles stay in VMEM for the whole horizon, never round-tripping
-    HBM); otherwise a vmapped per-candidate scan on the XLA path.
+    With the spectral plan model on the GPU the whole K x H block dispatches
+    to one whole-horizon kernel launch (:func:`_use_spectral_fused`);
+    otherwise a vmapped per-candidate scan on the XLA path.
 
     ``mpc.plan_chunk`` bounds the live working set: the K candidates are
     evaluated in sequential chunks of that size (``lax.map`` over chunks of
     the batched evaluator), so peak memory is ``plan_chunk x N`` planes
     instead of ``K x N``. Required for very-large-N full-fidelity planning
-    on one chip — at N=1e6 even K=64 holds several 256 MB (K, N) planes
-    live at once and crashed the TPU worker (round-4 measurement); chunked
+    on one device — at N=1e6 even K=64 holds several 256 MB (K, N) planes
+    live at once on the XLA path; chunked
     evaluation is sequential over chunks, so prefer the largest chunk that
     fits. Semantics-neutral by construction (same per-candidate program).
     A candidate block that is not a multiple of the chunk is PADDED up to
     one with copies of candidate 0 and the padded costs discarded — the
     chunk size requested is always the chunk size launched (an earlier
     clamp-to-largest-divisor silently serialized divisor-poor blocks to
-    chunk=1, ADVICE r4). Under shard_map this function sees the per-device
+    chunk=1). Under shard_map this function sees the per-device
     LOCAL block (K / n_devices); padding composes there too (each device
     pads its own block).
     """
     if mpc.plan_kernel == "packed":
-        # demoted grid Pallas kernel (not constructible via the Literal/CLI;
-        # guards hand-built configs for every plan model)
+        # not constructible via the Literal/CLI; guards hand-built configs
+        # for every plan model
         _reject_grid_pallas_kernel(mpc.plan_kernel)
     if mpc.plan_chunk is not None and coeff_seqs.shape[0] > mpc.plan_chunk:
         k_total = coeff_seqs.shape[0]
@@ -793,37 +814,10 @@ def candidate_costs(state, coeff_seqs, grid, cfg, mpc, actuator,
             "grid planner has no per-mode phasor to correct"
         )
     if mpc.plan_model == "spectral" and _use_spectral_fused(
-        mpc.plan_kernel, cfg.n_particles, jax.default_backend()
+        mpc.plan_kernel, cfg.n_particles, coeff_seqs.shape[0], jax.default_backend()
     ):
-        from ..ops.pallas.spectral_horizon import _use_rot, fused_spectral_horizon
-        ka = actuator.max_mode
-        km = max(int(mpc.plan_modes), ka)
-        dtype = coeff_seqs.dtype
-
-        def pad(u_half):  # (..., ka) -> (..., km), as in _horizon_cost_spectral
-            return jnp.concatenate(
-                [u_half, jnp.zeros(u_half.shape[:-1] + (km - ka,), dtype)], axis=-1
-            )
-
-        # config override of the kernel drift (None = env default
-        # PLASMA_SPECTRAL_DRIFT, default "auto" = rot under the static angle
-        # bound; see MPCConfig.spectral_drift for the quality gate)
-        rot = (None if mpc.spectral_drift is None
-               else _use_rot(cfg.clamped_dt(), cfg.length, mpc.spectral_drift))
-        pe = fused_spectral_horizon(
-            state.x, state.v,
-            pad(coeff_seqs[..., :ka]), pad(coeff_seqs[..., ka:]),
-            length=cfg.length, dt=cfg.clamped_dt(), n0=cfg.n0,
-            n_particles=cfg.n_particles,
-            interpret=jax.default_backend() != "tpu",
-            rot=rot,
-            twin_c=None if twin_target is None else twin_target[0],
-            twin_s=None if twin_target is None else twin_target[1],
-        )  # (K, H) exact post-drift spectral-model PE (corrected if twinned)
-        pe = _pe_factor(cfg, mpc) * pe
-        ie = actuator.input_energy(coeff_seqs)  # (K, H)
-        total = _add_terminal(jnp.sum(mpc.w_field * pe + mpc.w_input * ie, axis=-1), pe, mpc)
-        return _finite_or_huge(total)
+        return _spectral_kernel_costs(state, coeff_seqs, cfg, mpc, actuator,
+                                      twin_target=twin_target)
     if mpc.plan_model == "grid":
         _reject_grid_pallas_kernel(mpc.plan_kernel)
     return jax.vmap(
@@ -1046,15 +1040,15 @@ def plan(
     ``"rollout"`` mesh axis). The sampled candidate block is constrained to
     it, and GSPMD partitions the K independent H-step rollouts across the
     mesh — the cost reduction/softmax is the only cross-device communication.
-    For Pallas planning kernels multi-chip, use the shard_map planner
+    For the planning kernel on several devices, use the shard_map planner
     (:func:`plasma_control_tpu.parallel.pic_shard.make_sharded_plan`) instead.
     """
     if candidate_sharding is not None and mpc.plan_kernel != "xla":
-        # GSPMD cannot partition a pallas_call: the Pallas planning kernels
-        # only compose with multi-chip via shard_map (each device runs the
+        # GSPMD cannot partition a pallas_call: the planning kernel only
+        # composes with several devices via shard_map (each device runs the
         # kernel on its local candidate block — parallel.pic_shard.
         # make_sharded_plan). Under the constraint path, "auto" falls back to
-        # the XLA kernels; explicitly forced Pallas kernels are a config error.
+        # the XLA scan; an explicitly forced kernel is a config error.
         if mpc.plan_kernel in ("fused", "packed"):
             raise ValueError(
                 f"plan_kernel={mpc.plan_kernel!r} (Pallas) cannot be used with "

@@ -3,7 +3,7 @@
 Capability parity with `/root/reference/src/control/objective.py:8-35`
 (``estimate_f``, ``estimate_KL_divergence``, ``estimate_electric_energy``),
 as pure jittable functions. Histograms use index bucketing + scatter-add
-(deterministic on TPU; bin counts are static shapes).
+(bin counts are static shapes).
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Device-resident replay buffer.
 
 Capability parity with ``ReplayBuffer`` (`/root/reference/src/control/rl/ddpg.py:24-41`,
-a Python deque of torch tensors) re-designed TPU-native: preallocated device
+a Python deque of torch tensors) re-designed for compiled training: preallocated device
 arrays with a ring pointer, living inside jitted training scans (no host
 round-trips per transition). Sampling is uniform over the filled region.
 """

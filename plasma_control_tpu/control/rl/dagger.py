@@ -1,6 +1,6 @@
 """DAgger behavior cloning of the feedback or MPC expert.
 
-A TPU-native addition that fixes the covariate-shift failure of the
+An addition that fixes the covariate-shift failure of the
 reference's one-shot behavior cloning (`ddpg.py:364-405`, see DEVNOTES):
 because the experts here are *solvers* — the FFT phase-conjugate law
 (`run_feedback.py:130-143`) or the sampling-MPC planner

@@ -1,7 +1,7 @@
 """DDPG (TD3-flavored, with behavior cloning) in JAX/Flax/optax.
 
 Capability parity with `/root/reference/src/control/rl/ddpg.py:305-539`,
-re-designed TPU-native: the entire episode — policy forward, expert
+re-designed as one compiled program: the entire episode — policy forward, expert
 (phase-conjugate) action, PIC environment step, reward, replay-buffer write,
 and the conditional TD3 update — runs inside ONE compiled ``lax.scan``; the
 reference instead crosses the CPU(NumPy sim)<->GPU(torch nets) boundary twice

@@ -1,7 +1,7 @@
 """Particle-in-cell simulation: functional core + stateful convenience wrapper.
 
 Capability parity with class ``PIC`` (`/root/reference/src/env/pic.py:11-223`),
-re-designed TPU-first:
+re-designed as pure compiled functions:
 
 * the state is an immutable pytree ``(x, v)``; stepping is a pure function
   usable under ``jit``/``vmap``/``lax.scan``;
@@ -108,7 +108,7 @@ class PIC:
     ``get_energy``, ``get_electric_energy``, ``simulate``.
 
     Internally everything runs through the pure functional core, so the same
-    instance methods are jit-compiled and TPU-resident.
+    instance methods are jit-compiled and device-resident.
     """
 
     def __init__(self, cfg: SimConfig, key: Optional[jax.Array] = None, dtype=jnp.float32):

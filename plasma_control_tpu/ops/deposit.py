@@ -1,15 +1,15 @@
-"""Charge deposition (scatter) and field gather, TPU-native.
+"""Charge deposition (scatter) and field gather.
 
 Capability parity with `/root/reference/src/env/interpolate.py:4-44` (``CIC`` and
-``TSC``) but re-designed for TPU:
+``TSC``), two implementations of the same weights:
 
-* **dense** path (default for small meshes): evaluate the particle-shape
-  function for every (particle, cell) pair and reduce. XLA fuses the weight
-  computation into the reduction (deposit) or into an MXU matmul (gather), so
-  nothing of the (N, M) weight tensor is materialized in HBM. No scatter-adds,
-  fully deterministic, vmap/shard-friendly.
-* **scatter** path: ``.at[idx].add(w)`` segment-sum, better for very large
-  meshes where O(N*M) dense work loses.
+* **dense** path (default): evaluate the particle-shape function for every
+  (particle, cell) pair and reduce. XLA fuses the weight computation into the
+  reduction (deposit) and the matrix-vector product (gather), so the (N, M)
+  weight tensor is not materialized in device memory. No scatter-adds, fully
+  deterministic, vmap/shard-friendly.
+* **scatter** path: ``.at[idx].add(w)`` segment-sum (atomic adds on the GPU),
+  O(N) work instead of O(N*M).
 
 Normalization matches the reference exactly: ``n *= n0 * L / N / dx``
 (`/root/reference/src/env/interpolate.py:18`).
@@ -33,7 +33,7 @@ import jax.numpy as jnp
 from .grid import Grid
 
 Kind = Literal["cic", "tsc", "tsc_standard"]
-Method = Literal["dense", "scatter", "pallas"]
+Method = Literal["dense", "scatter"]
 
 __all__ = ["deposit", "gather", "shape_weights_dense", "shape_weights_from_offset", "deposit_and_gather_indices"]
 
@@ -50,11 +50,8 @@ def _wrapped_offset(x: jax.Array, grid: Grid) -> jax.Array:
 def shape_weights_from_offset(d: jax.Array, kind: Kind = "cic") -> jax.Array:
     """Shape-function weight w(d) of a periodically wrapped cell-unit offset.
 
-    The single source of the three weight formulas — used by the dense XLA
-    path here and traced inside the Pallas weight tiles
-    (`ops/pallas/cic_pallas.py::_weights_tile`), so the piecewise boundary
-    conditions cannot drift between the two paths. Shape-polymorphic
-    (elementwise in ``d``).
+    The single source of the three weight formulas for the dense path.
+    Shape-polymorphic (elementwise in ``d``).
     """
     if kind == "cic":
         return jnp.maximum(0.0, 1.0 - jnp.abs(d))
@@ -133,14 +130,7 @@ def deposit(
     `/root/reference/src/env/interpolate.py:16-18`.
     """
     n_particles = x.shape[0]
-    if method == "pallas":
-        from .pallas.cic_pallas import deposit_cic_pallas
-
-        n = deposit_cic_pallas(
-            jnp.mod(x, grid.length), grid.n_mesh, grid.length, kind=kind,
-            interpret=jax.default_backend() != "tpu",
-        )
-    elif method == "dense":
+    if method == "dense":
         w = shape_weights_dense(jnp.mod(x, grid.length), grid, kind)
         n = jnp.sum(w, axis=0)
     else:
@@ -166,17 +156,11 @@ def gather(
     Equivalent to the weighted fancy-index gather in
     `/root/reference/src/env/util.py:105-111`.
     """
-    if method == "pallas":
-        from .pallas.cic_pallas import gather_cic_pallas
-
-        return gather_cic_pallas(
-            field_mesh, jnp.mod(x, grid.length), grid.n_mesh, grid.length, kind=kind,
-            interpret=jax.default_backend() != "tpu",
-        )
     if method == "dense":
         w = shape_weights_dense(jnp.mod(x, grid.length), grid, kind)
-        # (N, M) @ (M,) — MXU matvec; XLA fuses the weight computation in.
-        return w @ field_mesh
+        # (N, M) @ (M,); XLA fuses the weight computation in. Full float32
+        # precision: the GPU may otherwise run this product in TF32.
+        return jnp.matmul(w, field_mesh, precision=jax.lax.Precision.HIGHEST)
     idxs, ws = deposit_and_gather_indices(x, grid, kind)
     out = jnp.zeros_like(x)
     for idx, w in zip(idxs, ws):

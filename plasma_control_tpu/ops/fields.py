@@ -2,7 +2,7 @@
 
 Capability parity with `/root/reference/src/env/util.py:48-147`
 (``compute_n``, ``compute_E``, ``compute_electric_energy``,
-``compute_hamiltonian``) re-designed as pure functions on a TPU:
+``compute_hamiltonian``) re-designed as pure functions:
 
 * the Poisson solve + gradient is a single circulant matmul (see
   :mod:`plasma_control_tpu.ops.grid`) or an rFFT, instead of the reference's
@@ -41,16 +41,17 @@ def solve_e_mesh(n: jax.Array, grid: Grid, n0: float = 1.0) -> jax.Array:
 
     Replaces ``Gaussian_Elimination_Periodic`` + ``-grad @ phi``
     (`/root/reference/src/env/util.py:99-100`). ``n`` may have leading batch
-    dims; the matmul contracts the last axis.
+    dims; the matmul contracts the last axis. Full float32 precision: the
+    GPU may otherwise run this product in TF32.
     """
-    return (n - n0) @ grid.e_op.T
+    return jnp.matmul(n - n0, grid.e_op.T, precision=jax.lax.Precision.HIGHEST)
 
 
 def solve_phi_mesh(n: jax.Array, grid: Grid, n0: float = 1.0) -> jax.Array:
     """phi_mesh (zero-mean gauge) from density. The reference's phi differs by
     an additive constant only (its rank-1 'gamma' regularization picks an
     arbitrary gauge), which never affects E or any published diagnostic."""
-    return (n - n0) @ grid.phi_op.T
+    return jnp.matmul(n - n0, grid.phi_op.T, precision=jax.lax.Precision.HIGHEST)
 
 
 def solve_e_mesh_fft(n: jax.Array, grid: Grid, n0: float = 1.0) -> jax.Array:

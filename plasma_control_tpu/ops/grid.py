@@ -1,6 +1,6 @@
 """Periodic 1D grid and spectral field operators.
 
-TPU-first re-design of the reference's dense finite-difference operator stack
+Compiled re-design of the reference's dense finite-difference operator stack
 (`/root/reference/src/env/util.py:8-46` ``generate_grad``/``generate_laplacian``
 and `/root/reference/src/env/solve.py:28-53` ``Gaussian_Elimination_Periodic``).
 
@@ -19,7 +19,7 @@ matmul ``E_mesh = E_OP @ (n - n0)`` with ``E_OP = F^-1 diag(-g_k/lambda_k) F``
 produces a solution that differs only by an additive constant, which G
 annihilates exactly, so the electric fields agree to rounding).
 
-One (M, M) matmul on the MXU replaces the reference's sequential O(M)
+One (M, M) matmul replaces the reference's sequential O(M)
 elimination loop; for batched rollouts this becomes a single (B, M) @ (M, M)
 matmul. An rFFT-based path is kept for large meshes and for diagnostics.
 """

@@ -1,304 +1,211 @@
-"""Fused Pallas TPU kernel: the WHOLE spectral-planner horizon per launch.
+"""Whole-horizon spectral planner kernel for NVIDIA GPUs (Pallas, Triton route).
 
 The default MPC planner (`MPCConfig.plan_model="spectral"`) rolls K candidate
 control sequences through the gridless low-mode dynamics
 (`plasma_control_tpu/control/mpc.py::_horizon_cost_spectral`): per step, a
-staggered-KDK drift, one pass of the cos/sin angle-addition recurrence giving
-the Km mode sums (deposit), the mode-space Poisson solve (a per-mode scale),
-and the field evaluation back at the particles (gather) — all O(N*Km) VPU
-MACs with two transcendentals per particle-step.
+staggered-KDK drift, the Km mode sums of the particle phasors (deposit), the
+mode-space Poisson solve (a per-mode scale) and the field evaluation back at
+the particles (gather) — O(N*Km) multiply-adds per candidate-step.
 
-On the XLA path the horizon runs as a ``lax.scan`` whose carry — the
-(K, N) positions and staggered velocities — round-trips HBM every step:
-at the benchmark shapes (K=512, N=5000 full fidelity, H=8) that is
-2 x 2 x K x N x 4 B ~ 80 MB of HBM traffic per step, a large fraction of the
-measured 1.9 ms/solve at v5e bandwidth. This kernel instead keeps a tile of
-``KB`` candidates' particle state in VMEM for the ENTIRE horizon: HBM sees
-(x0, v0) and the per-candidate mode coefficients in, and the (K, H) per-step
-field energies out — O(K*N) total instead of O(K*N*H).
+On the XLA path each of the H steps must finish its Km reductions over all N
+particles before the kick can run, so every step is several kernels and the
+(K, N) carry goes through device memory between them. Here ONE launch runs
+the whole horizon: one program per candidate, looping over power-of-two
+particle chunks (masked tail). The kick of step t needs only the mode sums of
+step t (known when the step starts) and the particle's own phasor, so the
+kick, the next drift and the next step's mode-sum accumulation share ONE
+pass over the particles: H passes per candidate, each reading and writing the
+candidate's carried state once. That state lives in a scratch output of
+K x 3 x N floats (K x 2 x N for the trig drift), ~23 MB at K=384, N=5000 —
+inside the card's L2.
 
-Semantics match ``_horizon_cost_spectral`` exactly (same ops, fp32, same
-merged-half-kick staggered KDK, same initial un-merged half kick, same
-post-drift PE): the returned (K, H) PE block feeds the identical cost
-assembly (w_field / w_input / w_terminal) in ``candidate_costs``.
+Semantics match ``_horizon_cost_spectral`` (same merged-half-kick staggered
+KDK, same initial un-merged half kick, same post-drift PE): the returned
+(K, H) PE block feeds the identical cost assembly in ``candidate_costs``.
 
-Drift variants (``PLASMA_SPECTRAL_DRIFT`` / the ``rot`` argument /
-``MPCConfig.spectral_drift``): "rot" replaces the per-step position update
-+ periodic wrap + cos/sin with a small-angle polynomial rotation of a
-carried base-harmonic phasor — ~10 VPU FMAs instead of two transcendentals
-per particle-step (~1.75x faster solves), agreeing with the trig path to
-fp32 round-off per solve (tests/test_pallas.py::TestSpectralDrift). The
-DEFAULT is "auto" (rot whenever the static angle bound holds): a
-112-rollout paired closed-loop gate certified rot seed-paired equal to
-trig on all three simcases at bench scale (see the ``_DRIFT`` comment,
-``experiments/rot_drift_gate.py`` and DEVNOTES 2026-08-21); "trig" is the
-opt-out and the automatic fallback for pathological dt·L.
-
-Padding: particles are padded to a lane multiple with x=0, v=0 and a zero
-mask folded into the per-step cos/sin — a masked particle's recurrence
-values are identically zero, so it contributes nothing to any mode sum and
-receives zero acceleration (it never moves, never costs).
+Drift variants (``rot``): "trig" carries x, wraps it and recomputes cos/sin
+per step, exactly as the XLA path does; "rot" carries the base-harmonic
+phasor (cos k1 x, sin k1 x) and advances it by a small-angle polynomial
+rotation — no transcendentals per step, agreeing with trig to fp32 round-off
+per solve (tests/test_pallas.py::TestSpectralDrift). :func:`_use_rot`
+resolves ``MPCConfig.spectral_drift="auto"``.
 """
 
 from __future__ import annotations
 
 import functools
-import os
 
 import numpy as np
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 __all__ = ["fused_spectral_horizon", "spectral_horizon_supported"]
 
-def _kb_from_env() -> int | None:
-    """Candidate-tile override for tile-size studies (experiments/
-    bench_spectral_kernel.py / bench_config4_study.py record measured rates
-    per KB). None (unset) = shape-aware default, see ``_kb_default``.
-    Clamped to a positive multiple of 8 — the sublane granule."""
-    v = os.environ.get("PLASMA_SPECTRAL_KB")
-    if v is None:
-        return None
-    try:
-        return max(8, (int(v) // 8) * 8)
-    except ValueError:
-        return None
-
-
-def _kb_default(n_pad: int, rot: bool) -> int:
-    """Measured-best candidate tile (TPU v5e sweeps, 2026-08-21):
-
-    * trig drift: KB=16 at the bench shapes (N_pad=5120: 1468 vs 1306 @32
-      vs 1376 @8 solves/s, r2 sweep), KB=32 at the config-4 shapes
-      (N_plan=2083 -> N_pad=2176: 121.8 vs 111.1 @16 vs 96.4 @8 —
-      experiments/bench_config4_study.py). Smaller particle blocks leave
-      VMEM headroom for a taller candidate tile, which amortizes the
-      per-tile x0 recurrence and scheduling overhead; threshold midway
-      between the measured points.
-    * rot drift: KB=32 wins even at N_pad=5120 (3010 vs 2665 @16 vs 2529
-      @8; KB=48 exceeds VMEM) — the rotation's cheaper per-step work makes
-      the taller tile's amortization dominate at every measured shape.
-
-    Clamped to the VMEM scratch budget — EMPIRICALLY for tall shapes: the
-    "~8 live (KB, N_pad) planes" model under-counts Mosaic's scoped-stack
-    temporaries there. Measured (v5e, 2026-08-21, round-4 config-2 OOM):
-    rot at N_pad=10112 with KB=16 fails compile at 23.1 MB scoped vmem
-    (limit 16 MB) while KB=8 compiles and runs; KB>=16 is verified only up
-    to the bench N_pad=5120 (KB=32 there is the measured optimum). So
-    above N_pad=5632 the default drops straight to KB=8 — and
-    :func:`_kb_clamped` applies the same ceiling to explicit
-    PLASMA_SPECTRAL_KB env overrides at dispatch, so no path can launch a
-    tile that reproduces the measured OOM."""
-    kb = 32 if (rot or n_pad <= 3584) else 16
-    if n_pad > 5632:
-        kb = 8
-    while kb > 8 and 8 * kb * n_pad * 4 > _VMEM_SCRATCH_BUDGET:
-        kb //= 2
-    return kb
-
-
-_KB = _kb_from_env()
-_VMEM_SCRATCH_BUDGET = 10 * 1024 * 1024
-
-# Drift implementation inside the kernel ("auto" | "rot" | "trig"):
-#   "rot"  — carry the base-harmonic phasor and advance it by a small-angle
-#            polynomial rotation per step (no per-step cos/sin, no wrap);
-#            ~2x faster solves at the bench shapes (with the KB=32 tile);
-#   "trig" — carry x, wrap, and recompute cos/sin per step (the r2 original);
-#   "auto" — "rot" whenever the static angle bound holds (below), else "trig".
-#
-# DEFAULT: "auto" (settled 2026-08-21 after a 112-rollout paired
-# closed-loop gate, experiments/rot_drift_gate.py — full history in its
-# tail comment and DEVNOTES). rot is seed-paired EQUAL to trig on ALL
-# three simcases at bench scale: bump-on-tail 13.7 vs 13.3 (8 paired
-# seeds), two-stream 36.8 vs 36.5 (80 paired seeds; 95% CI on the paired
-# mean diff [-9%, +11%], p=0.89 — an n=40 interim read showed an adverse
-# +13% point estimate that the next 40 seeds reversed: two-stream tail PE
-# is fat-tailed chaos, and the mechanism probe shows per-solve decisions
-# are identical), landau 3.7 vs 3.7 (8 paired seeds). "trig" remains the
-# opt-out (env var / MPCConfig.spectral_drift) and the automatic fallback
-# whenever the angle bound fails.
-_DRIFT = os.environ.get("PLASMA_SPECTRAL_DRIFT", "auto")
 # |delta| = (2*pi/L)*dt*|v| per step. With |v| <= _V_SAFE (25 thermal widths
 # at the reference's vth=1 — far beyond any populated tail) the 4/5th-order
 # cos/sin polynomials have truncation error ~ delta^6/720: < 2.2e-5 at the
-# |delta| <= 0.5 gate bound (worst case; < 1e-7 only for |delta| <~ 0.15).
-# At the bench shapes dt*(2*pi/L)*v is <= 0.5 only for the extreme-tail
-# velocities, so the TYPICAL per-step error is far below fp32 trig
-# round-off; the H-step accumulated worst case stays within the fp32
-# equivalence test's 2e-4 rtol (tests/test_pallas.py::TestSpectralDrift)
-# and closed-loop suppression is seed-paired equal to the trig path
-# (experiments/rot_drift_gate.py — gate results in DEVNOTES). The gate is
-# static (dt, L are trace-time constants), so the choice never recompiles
-# per call.
+# |delta| <= 0.5 gate bound. The gate is static (dt, L are trace-time
+# constants), so the choice never recompiles per call.
 _V_SAFE = 25.0
+# The carried state that "auto" keeps for the rot drift: below the card's
+# 50 MB L2 with room for the rest of the solve.
+_L2_CARRY_BYTES = 40 * 2**20
+# Particle chunk per loop iteration and warps per program. A chunk of 256
+# over 4 warps keeps each of the ~10 live chunk planes plus the 2*Km mode
+# accumulators at two registers per thread.
+_BLOCK = 256
+_NUM_WARPS = 4
 
 
-def _use_rot(dt: float, length: float, mode: str | None = None) -> bool:
-    """Resolve the drift choice: ``mode`` overrides the env default; "auto"
-    applies the static angle bound (an ACCURACY gate only — it does not
-    certify closed-loop quality, see the _DRIFT comment)."""
-    mode = _DRIFT if mode is None else mode
+def _use_rot(dt: float, length: float, n_carry: int, mode: str = "auto") -> bool:
+    """Resolve the drift choice: "rot", "trig", or "auto". ``n_carry`` is
+    K * N, the candidate-particle count of one launch.
+
+    "auto" takes rot where the static angle bound holds (an accuracy gate on
+    the rotation polynomials) and rot's three carried planes fit the L2
+    cache; trig carries two planes, so where the carry spills to device
+    memory trig moves a third fewer bytes and is the faster drift."""
     if mode == "rot":
         return True
     if mode == "trig":
         return False
-    return (2.0 * np.pi / length) * dt * _V_SAFE <= 0.5
+    return ((2.0 * np.pi / length) * dt * _V_SAFE <= 0.5
+            and 3 * 4 * n_carry <= _L2_CARRY_BYTES)
 
 
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
-
-
-def _kb_clamped(n_pad: int, rot: bool, corrected: bool = False) -> int:
-    """The tile actually launched: env override or shape default, both
-    clamped to the empirical tall-shape ceiling (KB>8 above N_pad=5632
-    reproduces the measured Mosaic scoped-vmem compile OOM — an env
-    override must not bypass the clamp; review finding r4).
-
-    ``corrected`` kernels (twin-correction refs + per-mode difference
-    temporaries) measure ~35 live (KB, N_pad) fp32 tile-planes of scoped
-    vmem vs the plain kernel's ~24 at bench shapes (measured 2026-08-21:
-    corrected KB=32 at N_pad=4224 OOMs at 17.92M vs the 16M limit, while
-    plain KB=32 at N_pad=5120 fits; plain tall shapes already show the
-    ~35-plane regime — KB=16 at N_pad=10112 OOMed at 23.1M in r4). The
-    corrected clamp therefore bounds KB*N_pad*4*35 <= 16M, i.e.
-    KB*N_pad <= ~114k, on top of every other clamp."""
-    kb = _KB if _KB is not None else _kb_default(n_pad, rot)
-    if n_pad > 5632:
-        kb = min(kb, 8)
-    if corrected:
-        kb = min(kb, max(8, (114_688 // n_pad) // 8 * 8))
-    return kb
-
-
-def spectral_horizon_supported(n_particles: int) -> bool:
-    """True if the (KB, N_pad) particle tiles fit VMEM.
-
-    Two gates: the analytic ~8-plane budget for the launched (clamped) KB,
-    plus an EMPIRICAL N_pad ceiling of 12288 — measured scoped-vmem use at
-    KB=8 is ~1.15 KB per particle-column (11.6 MB at N_pad=10112 vs the
-    16 MB limit), so ~13.9k columns is the hard boundary; 12288 leaves
-    ~12% headroom. Shapes above fall back to the XLA scan path under
-    "auto" (still the full-fidelity solve — e.g. BASELINE config-4 N=100k
-    runs XLA at ~21 solves/s, quality-gated in results_r4/config4_quality)."""
-    n_pad = _round_up(n_particles, 128)
-    kb = _kb_clamped(n_pad, rot=False)
-    return n_pad <= 12288 and 8 * kb * n_pad * 4 <= _VMEM_SCRATCH_BUDGET
+def spectral_horizon_supported(n_particles: int, n_candidates: int) -> bool:
+    """True if the flat index k * N + i of the (K * N,) state planes fits
+    the kernel's int32 pointer arithmetic."""
+    return n_candidates * n_particles < 2**31
 
 
 def _kernel(
-    x0_ref, v0_ref, mask_ref, u0c_ref, u0s_ref, pc_ref, ps_ref, *rest,
-    km: int, horizon: int, dt: float, length: float, g: tuple, inv_k2: tuple,
-    pe_scale: float, kb: int, rot: bool, corrected: bool,
+    x0_ref, c10_ref, s10_ref, v0_ref, coef_ref, *rest,
+    n: int, km: int, horizon: int, dt: float, length: float, g: tuple,
+    inv_k2: tuple, pe_scale: float, width: int, h_pad: int, block: int,
+    rot: bool, corrected: bool,
 ):
-    if corrected:
-        # noise-correction targets (1 - lambda_m)(c0, s0)(t) from the
-        # zero-drive twin (MPCConfig.plan_correction="twin"): the PE the
-        # cost sees is |(cm, sm) - (tc, ts)|^2 per mode — identical ops
-        # otherwise, two extra (1, H*Km) broadcast refs in
-        tc_ref, ts_ref, pe_ref = rest
-    else:
-        (pe_ref,) = rest
-    c_ang = 2.0 * np.pi / length
-    n = x0_ref.shape[1]
-    mask = mask_ref[:]  # (1, N)
-
-    # ---- initial un-merged half-kick at the shared x0 ----------------------
-    # Harmonics via the three-term (Chebyshev) recurrence
-    #   f((h+1)t) = 2cos(t)*f(h*t) - f((h-1)t)   (f = cos with f(0)=1, sin
-    # with f(0)=0): one FMA per harmonic per trig family instead of the two
-    # of the angle-addition form — the mode loop is the measured ~70% of
-    # solve time (DEVNOTES: fused-kernel headroom). Masking stays exact:
-    # the h=0 seeds are (mask, 0) so a masked lane's recurrence is
-    # identically zero regardless of the UNMASKED 2cos(t) factor.
-    t0 = c_ang * x0_ref[:]  # (1, N)
-    raw_c0 = jnp.cos(t0)
-    twoc_0 = raw_c0 + raw_c0
-    c_prev2, s_prev2 = mask, jnp.zeros_like(mask)  # harmonic 0
-    c1_0 = raw_c0 * mask  # harmonic-1 phasor at x0, kept for the rot drift
-    s1_0 = jnp.sin(t0) * mask
-    c_prev, s_prev = c1_0, s1_0
-    acc0 = jnp.zeros((kb, n), jnp.float32)
-    for m in range(km):
-        if m > 0:
-            c_next = twoc_0 * c_prev - c_prev2
-            s_next = twoc_0 * s_prev - s_prev2
-            c_prev2, c_prev = c_prev, c_next
-            s_prev2, s_prev = s_prev, s_next
-        cm = jnp.sum(c_prev)  # shared scalar mode sums at x0
-        sm = jnp.sum(s_prev)
-        pc0 = g[m] * sm + u0c_ref[:, m : m + 1]  # (KB, 1)
-        ps0 = -(g[m] * cm) + u0s_ref[:, m : m + 1]
-        acc0 = acc0 + pc0 * c_prev + ps0 * s_prev
-    vh = v0_ref[:] + 0.5 * dt * (-acc0)  # broadcasts (1,N)+(KB,N)
-    bmask = jnp.broadcast_to(mask, (kb, n))
+    tw_ref, rest = (rest[0], rest[1:]) if corrected else (None, rest)
+    # carried state: (cos k1 x, sin k1 x, vh) for rot, (x, vh) for trig
     if rot:
-        # rotation-drift state: the base-harmonic phasor (cos(k1 x), sin(k1 x))
-        # per particle, carried instead of x itself — masked lanes start (0, 0)
-        # and every rotation preserves zero
-        c1 = jnp.broadcast_to(c1_0, (kb, n))
-        s1 = jnp.broadcast_to(s1_0, (kb, n))
+        pe_ref, st0_ref, st1_ref, st2_ref = rest
     else:
-        x = jnp.broadcast_to(x0_ref[:], (kb, n))
-
-    # ---- H merged-kick steps, fully unrolled, state resident in VMEM -------
+        pe_ref, st0_ref, st2_ref = rest
+    k = pl.program_id(0)
+    base = k * n
+    c_ang = 2.0 * np.pi / length
     inv_l = 1.0 / length
+    row = k * width
+    n_chunks = -(-n // block)
+
+    def coef(j):  # scalar j of this candidate's coefficient row
+        return coef_ref[row + j]
+
+    def harmonics(c1, s1, mf):
+        """Chebyshev recurrence f((h+1)t) = 2cos(t) f(ht) - f((h-1)t):
+        yields (cos k_m x, sin k_m x) for m = 1..km. Harmonic 0 is seeded
+        with the lane mask, so masked lanes stay identically zero."""
+        twoc = c1 + c1
+        c_pp, s_pp = mf, jnp.zeros_like(mf)
+        c_p, s_p = c1, s1
+        out = [(c_p, s_p)]
+        for _ in range(km - 1):
+            c_n = twoc * c_p - c_pp
+            s_n = twoc * s_p - s_pp
+            c_pp, c_p, s_pp, s_p = c_p, c_n, s_p, s_n
+            out.append((c_p, s_p))
+        return out
+
+    # mode sums at the current positions: step 0 kicks with the shared x0
+    # sums (folded into the coefficient row by the wrapper), so its field
+    # coefficients are just the row's first 2*km entries
+    pc = [coef(m) for m in range(km)]
+    ps = [coef(km + m) for m in range(km)]
+    pe_row = jnp.zeros((h_pad,), jnp.float32)
     for t in range(horizon):
-        if rot:
-            # drift as a phasor rotation: ang += c_ang*dt*vh with the
-            # rotation's cos/sin from the small-angle Horner polynomials
-            # (|delta| = c_ang*dt*|v| << 1 — static gate in the wrapper).
-            # Replaces drift + wrap + 2 transcendentals with ~10 VPU FMAs.
-            d = (c_ang * dt) * vh
-            d2 = d * d
-            cd = 1.0 + d2 * (-0.5 + d2 * (1.0 / 24.0))
-            sd = d * (1.0 + d2 * (-1.0 / 6.0 + d2 * (1.0 / 120.0)))
-            c1, s1 = c1 * cd - s1 * sd, s1 * cd + c1 * sd
-            c_prev, s_prev = c1, s1
-            twoc = c1 + c1  # masked lanes: 0 — their Chebyshev chain stays 0
-        else:
-            x = x + dt * vh
-            x = x - length * jnp.floor(x * inv_l)
-            ang = c_ang * x
-            raw_c = jnp.cos(ang)
-            twoc = raw_c + raw_c
-            c_prev = raw_c * mask
-            s_prev = jnp.sin(ang) * mask
-        c_prev2, s_prev2 = bmask, jnp.zeros((kb, n), jnp.float32)  # harmonic 0
-        acc = jnp.zeros((kb, n), jnp.float32)
-        pe = jnp.zeros((kb, 1), jnp.float32)
+        first = t == 0
+
+        def body(i, accs, pc=pc, ps=ps, first=first):
+            idx = i * block + jnp.arange(block)
+            live = idx < n
+            mf = live.astype(jnp.float32)
+            gidx = base + idx
+            if first:
+                vh = pltriton.load(v0_ref.at[idx], mask=live, other=0.0)
+                c1 = pltriton.load(c10_ref.at[idx], mask=live, other=0.0)
+                s1 = pltriton.load(s10_ref.at[idx], mask=live, other=0.0)
+                if not rot:
+                    x = pltriton.load(x0_ref.at[idx], mask=live, other=0.0)
+            else:
+                vh = pltriton.load(st2_ref.at[gidx], mask=live, other=0.0)
+                if rot:
+                    c1 = pltriton.load(st0_ref.at[gidx], mask=live, other=0.0)
+                    s1 = pltriton.load(st1_ref.at[gidx], mask=live, other=0.0)
+                else:
+                    x = pltriton.load(st0_ref.at[gidx], mask=live, other=0.0)
+                    ang = c_ang * x
+                    c1 = jnp.cos(ang) * mf
+                    s1 = jnp.sin(ang) * mf
+            # kick at the current positions (the un-merged half kick at t=0,
+            # else the merged kick of the previous step boundary)
+            acc = jnp.zeros_like(vh)
+            for m, (cm, sm) in enumerate(harmonics(c1, s1, mf)):
+                acc = acc + pc[m] * cm + ps[m] * sm
+            vh = vh - (0.5 * dt) * acc
+            # drift
+            if rot:
+                d = (c_ang * dt) * vh
+                d2 = d * d
+                cd = 1.0 + d2 * (-0.5 + d2 * (1.0 / 24.0))
+                sd = d * (1.0 + d2 * (-1.0 / 6.0 + d2 * (1.0 / 120.0)))
+                c1, s1 = c1 * cd - s1 * sd, s1 * cd + c1 * sd
+                pltriton.store(st0_ref.at[gidx], c1, mask=live)
+                pltriton.store(st1_ref.at[gidx], s1, mask=live)
+            else:
+                x = x + dt * vh
+                x = x - length * jnp.floor(x * inv_l)
+                ang = c_ang * x
+                c1 = jnp.cos(ang) * mf
+                s1 = jnp.sin(ang) * mf
+                pltriton.store(st0_ref.at[gidx], x, mask=live)
+            pltriton.store(st2_ref.at[gidx], vh, mask=live)
+            # this step's mode sums at the new positions
+            new = []
+            for m, (cm, sm) in enumerate(harmonics(c1, s1, mf)):
+                new.append(accs[2 * m] + cm)
+                new.append(accs[2 * m + 1] + sm)
+            return tuple(new)
+
+        zero = jnp.zeros((block,), jnp.float32)
+        accs = lax.fori_loop(0, n_chunks, body, (zero,) * (2 * km))
+        sums = [jnp.sum(a) for a in accs]
+        pe = jnp.float32(0.0)
+        pc, ps = [], []
         for m in range(km):
-            if m > 0:
-                c_next = twoc * c_prev - c_prev2
-                s_next = twoc * s_prev - s_prev2
-                c_prev2, c_prev = c_prev, c_next
-                s_prev2, s_prev = s_prev, s_next
-            # NB an MXU matvec against a ones column was tried for these
-            # lane reductions and measured 2x SLOWER end-to-end (885 vs
-            # 1649 solves/s) — the 1-column matmul stalls; keep jnp.sum.
-            cm = jnp.sum(c_prev, axis=-1, keepdims=True)  # (KB, 1)
-            sm = jnp.sum(s_prev, axis=-1, keepdims=True)
-            col = t * km + m
-            pc = 2.0 * (g[m] * sm) + pc_ref[:, col : col + 1]
-            ps = 2.0 * (-(g[m] * cm)) + ps_ref[:, col : col + 1]
-            acc = acc + pc * c_prev + ps * s_prev
+            cm, sm = sums[2 * m], sums[2 * m + 1]
             if corrected:
-                dcm = cm - tc_ref[:, col : col + 1]
-                dsm = sm - ts_ref[:, col : col + 1]
+                dcm = cm - tw_ref[t * km + m]
+                dsm = sm - tw_ref[(horizon + t) * km + m]
                 pe = pe + (dcm * dcm + dsm * dsm) * inv_k2[m]
             else:
                 pe = pe + (cm * cm + sm * sm) * inv_k2[m]
-        vh = vh + 0.5 * dt * (-acc)
-        pe_ref[:, t : t + 1] = pe_scale * pe
+            # merged-kick field coefficients of this step boundary:
+            # 2*E_self + u_t + u_{t+1}
+            col = 2 * km + t * km + m
+            pc.append(2.0 * (g[m] * sm) + coef(col))
+            ps.append(2.0 * (-(g[m] * cm)) + coef(horizon * km + col))
+        pe_row = jnp.where(jnp.arange(h_pad) == t, pe_scale * pe, pe_row)
+    pe_ref[pl.ds(k * h_pad, h_pad)] = pe_row
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("length", "dt", "n0", "n_particles", "interpret", "rot"),
+    static_argnames=("length", "dt", "n0", "n_particles", "interpret", "rot",
+                     "block"),
 )
 def fused_spectral_horizon(
     x0: jax.Array,  # (N,)
@@ -310,83 +217,81 @@ def fused_spectral_horizon(
     dt: float,
     n0: float,
     n_particles: int,
+    rot: bool,
     interpret: bool = False,
-    rot: bool | None = None,  # None: PLASMA_SPECTRAL_DRIFT / static angle gate
     twin_c: jax.Array | None = None,  # (H, Km) noise-correction target, or None
     twin_s: jax.Array | None = None,
+    block: int = _BLOCK,
 ) -> jax.Array:
     """(K, H) exact post-drift spectral-model field energies per candidate.
 
     With ``twin_c``/``twin_s`` set (``MPCConfig.plan_correction="twin"``),
     the returned energies are the CORRECTED |phasor - target|^2 form — see
-    :func:`plasma_control_tpu.control.mpc.twin_targets`."""
+    :func:`plasma_control_tpu.control.mpc.twin_targets`. ``block`` is the
+    particle chunk of the inner loop (a power of two)."""
     k_cand, horizon, km = u_c.shape
-    n_pad = _round_up(n_particles, 128)
-    use_rot = _use_rot(dt, length) if rot is None else rot
-    # largest tile <= the target that divides K (sub-sublane tiles are legal,
-    # just less efficient — keeps sharded local blocks of any size working);
-    # target = env override or the shape/drift-aware measured default, both
-    # clamped to the tall-shape/corrected scoped-vmem ceilings (_kb_clamped)
-    kb_t = _kb_clamped(n_pad, use_rot, corrected=twin_c is not None)
-    kb = next(
-        d for d in dict.fromkeys((kb_t, 32, 16, 8, 4, 2, 1))
-        if d <= kb_t and k_cand % d == 0
-    )
+    n = n_particles
+    f32 = jnp.float32
+    x0 = x0.astype(f32)
+    v0 = v0.astype(f32)
+    kv = 2.0 * np.pi / length * np.arange(1, km + 1)
+    g = 2.0 * n0 / (n * kv)
 
-    pad = n_pad - n_particles
-    x0p = jnp.pad(x0.astype(jnp.float32), (0, pad))[None, :]
-    v0p = jnp.pad(v0.astype(jnp.float32), (0, pad))[None, :]
-    mask = jnp.pad(jnp.ones((n_particles,), jnp.float32), (0, pad))[None, :]
+    # shared across candidates: the x0 phasor and its mode sums
+    t0 = (2.0 * np.pi / length) * x0
+    c10, s10 = jnp.cos(t0), jnp.sin(t0)
+    twoc = c10 + c10
+    c_pp, s_pp, c_p, s_p = jnp.ones_like(c10), jnp.zeros_like(s10), c10, s10
+    c0, s0 = [jnp.sum(c_p)], [jnp.sum(s_p)]
+    for _ in range(km - 1):
+        c_pp, c_p = c_p, twoc * c_p - c_pp
+        s_pp, s_p = s_p, twoc * s_p - s_pp
+        c0.append(jnp.sum(c_p))
+        s0.append(jnp.sum(s_p))
+    c0, s0 = jnp.stack(c0), jnp.stack(s0)
 
-    # pair_t = u_t + u_{t+1} (last: u_{H-1} + u_{H-1}), flattened to (K, H*Km)
-    pair_c = (jnp.concatenate([u_c[:, 1:], u_c[:, -1:]], axis=1) + u_c).reshape(k_cand, -1)
-    pair_s = (jnp.concatenate([u_s[:, 1:], u_s[:, -1:]], axis=1) + u_s).reshape(k_cand, -1)
-    u0c = u_c[:, 0, :]
-    u0s = u_s[:, 0, :]
+    # per-candidate coefficient row: step-0 field coefficients, then the
+    # boundary pairs u_t + u_{t+1} (last: u_{H-1} + u_{H-1}) for cos and sin
+    pc0 = g * s0 + u_c[:, 0, :]
+    ps0 = -(g * c0) + u_s[:, 0, :]
+    pair_c = jnp.concatenate([u_c[:, 1:], u_c[:, -1:]], axis=1) + u_c
+    pair_s = jnp.concatenate([u_s[:, 1:], u_s[:, -1:]], axis=1) + u_s
+    coef = jnp.concatenate(
+        [pc0, ps0, pair_c.reshape(k_cand, -1), pair_s.reshape(k_cand, -1)], axis=1
+    ).astype(f32)
+    width = coef.shape[1]
+    h_pad = pl.next_power_of_2(horizon)
 
     corrected = twin_c is not None
-    kv = 2.0 * np.pi / length * np.arange(1, km + 1)
+    operands = [x0, c10, s10, v0, coef.reshape(-1)]
+    if corrected:
+        operands.append(jnp.concatenate(
+            [twin_c.reshape(-1), twin_s.reshape(-1)]).astype(f32))
     kernel = functools.partial(
         _kernel,
+        n=n,
         km=km,
         horizon=horizon,
         dt=dt,
         length=length,
-        g=tuple(float(v) for v in 2.0 * n0 / (n_particles * kv)),
+        g=tuple(float(v) for v in g),
         inv_k2=tuple(float(v) for v in 1.0 / (kv * kv)),
-        pe_scale=n0**2 / n_particles,
-        kb=kb,
-        rot=use_rot,
+        pe_scale=n0**2 / n,
+        width=width,
+        h_pad=h_pad,
+        block=block,
+        rot=rot,
         corrected=corrected,
     )
-    bcast = pl.BlockSpec((1, n_pad), lambda i: (0, 0), memory_space=pltpu.VMEM)
-    bcast_w = lambda width: pl.BlockSpec(
-        (1, width), lambda i: (0, 0), memory_space=pltpu.VMEM
-    )
-    per_cand = lambda width: pl.BlockSpec(
-        (kb, width), lambda i: (i, 0), memory_space=pltpu.VMEM
-    )
-    in_specs = [
-        bcast,  # x0
-        bcast,  # v0
-        bcast,  # mask
-        per_cand(km),  # u0c
-        per_cand(km),  # u0s
-        per_cand(horizon * km),  # pair_c
-        per_cand(horizon * km),  # pair_s
-    ]
-    operands = [x0p, v0p, mask, u0c, u0s, pair_c, pair_s]
-    if corrected:
-        in_specs += [bcast_w(horizon * km), bcast_w(horizon * km)]
-        operands += [
-            twin_c.astype(jnp.float32).reshape(1, horizon * km),
-            twin_s.astype(jnp.float32).reshape(1, horizon * km),
-        ]
-    return pl.pallas_call(
+    state = jax.ShapeDtypeStruct((k_cand * n,), f32)
+    pe, *_ = pl.pallas_call(
         kernel,
-        grid=(k_cand // kb,),
-        in_specs=in_specs,
-        out_specs=per_cand(horizon),
-        out_shape=jax.ShapeDtypeStruct((k_cand, horizon), jnp.float32),
+        grid=(k_cand,),
+        out_shape=(jax.ShapeDtypeStruct((k_cand * h_pad,), f32),)
+        + (state,) * (3 if rot else 2),
+        compiler_params=pltriton.CompilerParams(num_warps=_NUM_WARPS, num_stages=1),
+        backend="triton",
         interpret=interpret,
+        name="spectral_horizon",
     )(*operands)
+    return pe.reshape(k_cand, h_pad)[:, :horizon]

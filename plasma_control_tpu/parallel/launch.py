@@ -1,10 +1,9 @@
 """Multi-host launch helpers.
 
-The reference has no distributed runtime (SURVEY §2.6). On a TPU slice, each
-host process calls :func:`initialize_distributed` once before any jax call
-that touches devices; collectives then ride ICI within the slice and DCN
-across hosts through the standard `jax.distributed` rendezvous. On
-single-host (or CPU test) environments this is a no-op.
+The reference has no distributed runtime (SURVEY §2.6). In a multi-process
+launch, each process calls :func:`initialize_distributed` once before any
+jax call that touches devices, with the coordinator given explicitly or
+through environment variables; otherwise this is a no-op.
 """
 
 from __future__ import annotations
@@ -22,13 +21,10 @@ def initialize_distributed(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> bool:
-    """Initialize jax.distributed if a multi-host environment is detected or
-    explicitly configured. Returns True if distributed mode is active.
-
-    Auto-detects TPU pod environments (the TPU runtime supplies coordinator
-    details); explicit arguments/environment variables
-    (``JAX_COORDINATOR_ADDRESS``/``JAX_NUM_PROCESSES``/``JAX_PROCESS_ID``)
-    cover manual launches.
+    """Initialize jax.distributed from explicit arguments or the
+    ``JAX_COORDINATOR_ADDRESS``/``JAX_NUM_PROCESSES``/``JAX_PROCESS_ID``
+    environment variables. Returns True if distributed mode is active;
+    with neither, nothing is initialized and it returns False.
     """
     coordinator_address = coordinator_address or os.environ.get("JAX_COORDINATOR_ADDRESS")
     if num_processes is None and "JAX_NUM_PROCESSES" in os.environ:
@@ -37,12 +33,7 @@ def initialize_distributed(
         process_id = int(os.environ["JAX_PROCESS_ID"])
 
     if coordinator_address is None and num_processes is None:
-        # Rely on TPU auto-bootstrap when available; otherwise single-process.
-        try:
-            jax.distributed.initialize()
-        except Exception:
-            return False
-        return jax.process_count() > 1
+        return False
 
     jax.distributed.initialize(
         coordinator_address=coordinator_address,

@@ -1,18 +1,18 @@
 """Device mesh construction and sharding helpers.
 
 The reference is strictly single-process/single-device (SURVEY §2.6); scaling
-is a first-class new capability here, designed for TPU slices:
+is a first-class new capability here. The mesh follows the algorithm alone
+(the cards of one host are joined all to all):
 
 * axis ``"rollout"`` — data-parallel candidate/rollout batching (the MPC
   solver's K sampled control sequences; RL batch envs). Collectives: cost
-  ``psum``/top-k over ICI.
+  gather/top-k.
 * axis ``"particle"`` — optional sharding of the particle axis for N >= 1M:
   deposition becomes local partial densities + ``psum`` of the small (M,)
   density vector; the gather needs only the replicated E_mesh.
 
-Tests exercise these on a virtual 8-device CPU mesh
-(``--xla_force_host_platform_device_count=8``); the same code runs unchanged
-on a v5p slice via ``jax.distributed.initialize``.
+Tests exercise these on a virtual 8-device CPU mesh; the same code runs
+unchanged on several GPUs (``chip_smoke.py --four``).
 """
 
 from __future__ import annotations

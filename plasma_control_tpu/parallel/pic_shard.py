@@ -1,11 +1,11 @@
 """Sharded PIC stepping and MPC planning over a device mesh.
 
-New TPU-native capability (the reference is single-device, SURVEY §2.6):
+New capability (the reference is single-device, SURVEY §2.6):
 
 * **particle sharding** — the particle arrays (x, v) are sharded along a
   ``"particle"`` mesh axis. Deposition computes a *local partial density* from
-  the local particle block and ``psum``s the small (M,) vector over ICI — the
-  TPU analogue of PIC domain decomposition. The field solve is replicated
+  the local particle block and ``psum``s the small (M,) vector — the
+  particle-decomposition form of PIC domain decomposition. The field solve is replicated
   (tiny circulant matmul); the gather needs only local particles + the
   replicated mesh field. One psum of M floats per field evaluation (3 per
   Yoshida step) is the entire communication volume.
@@ -14,7 +14,7 @@ New TPU-native capability (the reference is single-device, SURVEY §2.6):
   (zero communication) and only the (K,) cost vector is gathered for the
   MPPI/CEM update.
 
-Both run unchanged on a virtual CPU mesh (tests) and a real TPU slice.
+Both run unchanged on a virtual CPU mesh (tests) and on several GPUs.
 """
 
 from __future__ import annotations
@@ -72,7 +72,7 @@ def make_particle_sharded_step(
     def accel_factory(e_ext):
         def accel(x_local):
             n_raw = deposit(x_local, grid, kind=cfg.interpol, method=cfg.deposit_method, normalize=False)
-            n = jax.lax.psum(n_raw, axis) * norm  # ICI collective: (M,) floats
+            n = jax.lax.psum(n_raw, axis) * norm  # collective: (M,) floats
             e_mesh = solve_e_mesh(n, grid, cfg.n0) + e_ext
             return -gather(e_mesh, x_local, grid, kind=cfg.interpol, method=cfg.deposit_method)
 
@@ -130,7 +130,7 @@ def _sharded_costs_closure(
 ):
     """shard_map candidate scorer over the (already fidelity-reduced) plan
     model: each device scores its local candidate block with the FULL
-    single-chip scorer (every kernel incl. the Pallas spectral horizon runs
+    single-chip scorer (every kernel incl. the spectral horizon kernel runs
     per-device inside shard_map); only the (K,) cost vector crosses devices.
     """
     if mpc.n_candidates % mesh.shape[axis]:

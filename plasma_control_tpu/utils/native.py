@@ -2,7 +2,7 @@
 
 ``native/pic_ref.cpp`` implements the reference's exact discrete semantics
 (Thomas + Sherman-Morrison periodic Poisson solve, CIC, Yoshida-4) as -O3
-C++. It serves as (a) an independent oracle for cross-validating the TPU
+C++. It serves as (a) an independent oracle for cross-validating the JAX
 kernels and (b) the honest compiled CPU baseline in bench.py (the reference's
 hot kernels are Numba/LLVM-compiled, so a C++ loop is the right single-core
 apples-to-apples).

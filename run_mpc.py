@@ -1,5 +1,5 @@
-"""Receding-horizon sampling MPC control (the TPU-native controller that
-replaces the reference's RL training loops; BASELINE.json north star).
+"""Receding-horizon sampling MPC control (the controller that replaces the
+reference's RL training loops; BASELINE.json north star).
 
 Usage: python run_mpc.py --simcase bump-on-tail --max_mode 4 \\
            --n_candidates 512 --horizon 8 --plan_modes 8
@@ -61,7 +61,8 @@ def main():
     if args["save_aot"]:
         import time
 
-        from plasma_control_tpu.io.aot import export_plan, save_compiled_plan
+        from plasma_control_tpu.io.aot import (
+            export_plan, save_compiled_plan, write_fingerprint)
 
         t0 = time.perf_counter()
         if args["save_aot"].endswith(".pkl"):
@@ -70,6 +71,7 @@ def main():
         else:
             export_plan(grid, cfg, ctrl, mpc, actuator, path=args["save_aot"],
                         kind="control_step")
+        write_fingerprint(args["save_aot"], cfg, ctrl, mpc)
         print(f"# AOT control-step artifact written to {args['save_aot']} "
               f"({time.perf_counter() - t0:.1f}s)")
         return
@@ -107,8 +109,12 @@ def main():
         import time
 
         from plasma_control_tpu.io.aot import (
-            aot_mpc_rollout, load_compiled_plan, load_plan)
+            aot_mpc_rollout, check_fingerprint, load_compiled_plan, load_plan)
 
+        try:
+            check_fingerprint(args["aot"], cfg, ctrl, mpc)
+        except ValueError as e:
+            raise SystemExit(str(e))
         t0 = time.perf_counter()
         loader = load_compiled_plan if args["aot"].endswith(".pkl") else load_plan
         ctrl_step = loader(args["aot"])

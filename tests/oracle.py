@@ -5,7 +5,7 @@ Written from scratch against the *documented behavior* of
 deposition, exact linear-algebra Poisson solve, and an explicit
 drift/kick Yoshida-4 composition matching the reference's stage order
 (`integration.py:60-75` with `_symplectic_forward_step` semantics).
-Used by tests to validate the TPU implementation numerically.
+Used by tests to validate the JAX implementation numerically.
 """
 
 from __future__ import annotations

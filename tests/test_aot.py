@@ -136,3 +136,21 @@ def test_example_args_match_config():
     x, v, mean, key = plan_example_args(cfg, ctrl, mpc)
     assert x.shape == (123,) and v.shape == (123,)
     assert mean.shape == (5, 6)
+
+
+class TestFingerprint:
+    def test_platform_is_part_of_the_key(self, setup, monkeypatch):
+        """An artifact lowered for one platform cannot run on another, so
+        the staleness fingerprint changes with the platform alone."""
+        import dataclasses
+
+        from plasma_control_tpu.io import aot
+
+        cfg, ctrl, mpc = setup[0], setup[1], setup[2]
+        here = aot.config_fingerprint(cfg, ctrl, mpc)
+        assert here == aot.config_fingerprint(cfg, ctrl, mpc)
+        monkeypatch.setattr(aot.jax, "default_backend", lambda: "gpu")
+        assert aot.config_fingerprint(cfg, ctrl, mpc) != here
+        assert aot.config_fingerprint(
+            cfg, ctrl, dataclasses.replace(mpc, horizon=mpc.horizon + 1)
+        ) != aot.config_fingerprint(cfg, ctrl, mpc)

@@ -2,7 +2,7 @@
 float64 native-C++ implementation of the reference semantics.
 
 This is the BASELINE.md acceptance-style check: the controlled field-energy
-trajectory of our TPU path must track the reference implementation within
+trajectory of our JAX path must track the reference implementation within
 tight tolerance over the control horizon.
 """
 
@@ -66,7 +66,7 @@ class TestGoldenTraces:
         assert rel.max() < 0.01, f"max relative PE error {rel.max():.4f}"
 
     def test_feedback_pe_trace_matches(self):
-        """Controlled trajectory: float32 TPU path vs float64 reference path
+        """Controlled trajectory: float32 JAX path vs float64 reference path
         must agree on the field-energy trace within 1% (BASELINE tolerance)."""
         cfg = SimConfig(n_particles=N, n_mesh=M, dt=DT, t_max=8.0, length=L)
         ctrl = ControlConfig(max_mode=K)
@@ -165,7 +165,7 @@ class TestReferenceDDPGGolden:
 
     @pytest.mark.parametrize("case", CASES)
     def test_jax_float32_replay_within_baseline_tolerance(self, case):
-        """The compiled float32 TPU path must track the reference DDPG
+        """The compiled float32 JAX path must track the reference DDPG
         trajectory within the BASELINE <1% tolerance over the full horizon."""
         d = _load_ddpg_golden(case)
         n_mesh, length, dt = int(d["n_mesh"]), float(d["length"]), float(d["dt"])

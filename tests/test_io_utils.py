@@ -290,3 +290,32 @@ class TestTrainCheckpointRobustness:
         from plasma_control_tpu.io.resume import restore_train_checkpoint
 
         assert restore_train_checkpoint(str(tmp_path / "nope"), None, None, None, None) is None
+
+
+class TestCompileCache:
+    """utils/cache.py: one place decides where the persistent compilation
+    cache lives."""
+
+    def _calls(self, monkeypatch):
+        from plasma_control_tpu.utils import cache
+
+        calls = {}
+        monkeypatch.setattr(cache.jax.config, "update",
+                            lambda name, value: calls.__setitem__(name, value))
+        return cache, calls
+
+    def test_env_var_wins_and_nothing_is_set(self, monkeypatch, tmp_path):
+        cache, calls = self._calls(monkeypatch)
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        assert cache.enable_compile_cache() == str(tmp_path)
+        assert calls == {}
+
+    def test_default_is_the_checkout(self, monkeypatch):
+        import os
+
+        cache, calls = self._calls(monkeypatch)
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        path = cache.enable_compile_cache()
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert path == os.path.join(root, ".jax_cache")
+        assert calls["jax_compilation_cache_dir"] == path

@@ -59,8 +59,8 @@ class TestPlan:
         np.testing.assert_allclose(c_lf, c_env, rtol=0.05)
 
     def test_kdk_planner_preserves_ranking(self):
-        """The velocity-Verlet (KDK) planner — the fused-TPU-kernel scheme —
-        ranks candidates like the full Yoshida-4 dynamics and stays close in
+        """The velocity-Verlet (KDK) planner ranks candidates like the full
+        Yoshida-4 dynamics and stays close in
         value (it is the adjoint splitting of the leapfrog planner)."""
         cfg = tiny_cfg()
         grid = make_grid(cfg.n_mesh, cfg.length)
@@ -106,8 +106,7 @@ class TestPlan:
     def test_spectral_planner_preserves_ranking(self):
         """The gridless low-mode spectral planning model (the default,
         MPCConfig.plan_model='spectral') ranks candidates like the full
-        grid dynamics and stays close in cost — 2.6x faster solves on TPU
-        (1021 vs 399 solves/s at the bench shapes, DEVNOTES perf map)."""
+        grid dynamics and stays close in cost."""
         cfg = tiny_cfg(n_particles=4000, n_mesh=128)
         grid = make_grid(cfg.n_mesh, cfg.length)
         act = make_actuator(cfg.length, cfg.n_mesh, CTRL.max_mode)
@@ -152,8 +151,8 @@ class TestPlan:
             rtol=1e-4, atol=1e-4)
 
     def test_spectral_rejects_packed_grid_kernel(self):
-        """'packed' is grid-only; 'fused' with the spectral model dispatches
-        the whole-horizon spectral Pallas kernel (TestFusedSpectral)."""
+        """'packed' names no kernel; 'fused' with the spectral model
+        dispatches the whole-horizon spectral kernel (TestFusedSpectral)."""
         cfg = tiny_cfg()
         grid = make_grid(cfg.n_mesh, cfg.length)
         act = make_actuator(cfg.length, cfg.n_mesh, CTRL.max_mode)
@@ -456,10 +455,12 @@ class TestTerminalCost:
         ],
         ids=["spectral", "spectral-fused", "kdk"],
     )
-    def test_growth_terminal_consistent_across_paths(self, kw):
+    def test_growth_terminal_consistent_across_paths(self, kw, request):
         """On every planner path, the growth tail added on top of the plain
         cost equals w_field * PE_H * geom(r) reconstructed from the per-step
         PEs that the w_terminal linearity trick exposes."""
+        if kw.get("plan_kernel") == "fused":
+            request.getfixturevalue("spectral_kernel_interpreted")
         cfg = tiny_cfg(n_particles=512)
         grid = make_grid(cfg.n_mesh, cfg.length)
         act = make_actuator(cfg.length, cfg.n_mesh, CTRL.max_mode)
@@ -556,22 +557,22 @@ class TestPlanFidelityCheck:
 
 
 class TestFusedSpectral:
-    def test_fused_spectral_matches_xla_spectral(self):
-        """The whole-horizon Pallas spectral kernel returns the same candidate
+    def test_fused_spectral_matches_xla_spectral(self, spectral_kernel_interpreted):
+        """The whole-horizon spectral kernel returns the same candidate
         costs as the XLA scan path (same ops, fp32 reassociation only)."""
-        cfg = tiny_cfg(n_particles=384)  # non-multiple of 128: exercises padding
+        cfg = tiny_cfg(n_particles=384)  # non-multiple of the 256 chunk: masked tail
         grid = make_grid(cfg.n_mesh, cfg.length)
         act = make_actuator(cfg.length, cfg.n_mesh, CTRL.max_mode)
         st = init_state(cfg, jax.random.PRNGKey(0))
         cand = 0.3 * jax.random.normal(jax.random.PRNGKey(1), (16, 5, 4))
         base = dict(horizon=5, n_candidates=16, plan_modes=6)
         c_xla = np.asarray(candidate_costs(
-            st, cand, grid, cfg, MPCConfig(**base), act))
+            st, cand, grid, cfg, MPCConfig(**base, plan_kernel="xla"), act))
         c_fused = np.asarray(candidate_costs(
             st, cand, grid, cfg, MPCConfig(**base, plan_kernel="fused"), act))
         np.testing.assert_allclose(c_fused, c_xla, rtol=2e-4, atol=1e-5)
 
-    def test_fused_spectral_with_terminal_cost(self):
+    def test_fused_spectral_with_terminal_cost(self, spectral_kernel_interpreted):
         cfg = tiny_cfg(n_particles=256)
         grid = make_grid(cfg.n_mesh, cfg.length)
         act = make_actuator(cfg.length, cfg.n_mesh, CTRL.max_mode)
@@ -579,23 +580,43 @@ class TestFusedSpectral:
         cand = 0.3 * jax.random.normal(jax.random.PRNGKey(1), (8, 4, 4))
         base = dict(horizon=4, n_candidates=8, plan_modes=4, w_terminal=3.0)
         c_xla = np.asarray(candidate_costs(
-            st, cand, grid, cfg, MPCConfig(**base), act))
+            st, cand, grid, cfg, MPCConfig(**base, plan_kernel="xla"), act))
         c_fused = np.asarray(candidate_costs(
             st, cand, grid, cfg, MPCConfig(**base, plan_kernel="fused"), act))
         np.testing.assert_allclose(c_fused, c_xla, rtol=2e-4, atol=1e-5)
 
-    def test_auto_dispatch_policy(self):
-        """'auto' picks the fused spectral kernel only on real TPU at
-        supported sizes; 'fused' forces it or errors; 'xla' never."""
+    @pytest.mark.parametrize("plan_kernel,n,backend,expected", [
+        ("auto", 5000, "gpu", True),
+        ("auto", 5000, "cpu", False),
+        ("auto", 10_000_000, "gpu", False),  # K*N past the int32 index
+        ("xla", 5000, "gpu", False),
+        ("fused", 5000, "gpu", True),
+        ("fused", 5000, "cpu", ValueError),  # the kernel runs only on the GPU
+        ("fused", 10_000_000, "gpu", ValueError),
+    ])
+    def test_auto_dispatch_policy(self, plan_kernel, n, backend, expected):
+        """'auto' picks the spectral kernel on the GPU where it is
+        supported and the XLA scan elsewhere; 'fused' forces it and is a
+        config error off the GPU; 'xla' never picks it."""
         from plasma_control_tpu.control.mpc import _use_spectral_fused
 
-        assert _use_spectral_fused("auto", 5000, "tpu")
-        assert not _use_spectral_fused("auto", 5000, "cpu")
-        assert not _use_spectral_fused("auto", 10_000_000, "tpu")  # VMEM
-        assert not _use_spectral_fused("xla", 5000, "tpu")
-        assert _use_spectral_fused("fused", 5000, "cpu")
-        with pytest.raises(ValueError):
-            _use_spectral_fused("fused", 10_000_000, "tpu")
+        if expected is ValueError:
+            with pytest.raises(ValueError):
+                _use_spectral_fused(plan_kernel, n, 384, backend)
+        else:
+            assert _use_spectral_fused(plan_kernel, n, 384, backend) is expected
+
+    def test_fused_off_gpu_is_a_config_error(self):
+        """Forcing the kernel through candidate_costs on the CPU raises
+        instead of running the interpreter behind the user's back."""
+        cfg = tiny_cfg(n_particles=256)
+        grid = make_grid(cfg.n_mesh, cfg.length)
+        act = make_actuator(cfg.length, cfg.n_mesh, CTRL.max_mode)
+        st = init_state(cfg, jax.random.PRNGKey(0))
+        cand = 0.3 * jax.random.normal(jax.random.PRNGKey(1), (8, 4, 4))
+        with pytest.raises(ValueError, match="only on the GPU"):
+            candidate_costs(st, cand, grid, cfg,
+                            MPCConfig(horizon=4, n_candidates=8, plan_kernel="fused"), act)
 
 
 class TestDynamicFidelityGuard:
@@ -856,8 +877,8 @@ class TestTwinCorrection:
             tail(out.field_energy), tail(un.field_energy))
 
     def test_fused_corrected_matches_xla(self):
-        """Interpret-mode Pallas corrected kernel == XLA corrected spectral
-        path (same CRN twin targets) to fp32 reassociation."""
+        """Interpret-mode corrected kernel == XLA corrected spectral path
+        (same CRN twin targets) to fp32 reassociation."""
         import dataclasses as dc
 
         from plasma_control_tpu.control.mpc import (

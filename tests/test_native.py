@@ -1,5 +1,5 @@
 """Native C++ reference-kernel library tests: cross-validate against both the
-NumPy oracle and the JAX/TPU path."""
+NumPy oracle and the JAX path."""
 
 import numpy as np
 import jax.numpy as jnp

@@ -73,6 +73,32 @@ class TestDeposit:
             ns = deposit(x, grid, kind=kind, method="scatter")
             np.testing.assert_allclose(np.asarray(nd), np.asarray(ns), rtol=1e-4, atol=1e-4)
 
+    @pytest.mark.parametrize("kind", ["cic", "tsc", "tsc_standard"])
+    @pytest.mark.parametrize("op", ["deposit", "gather"])
+    def test_scatter_matches_dense(self, rng, kind, op):
+        """The scatter path (O(N) index/weight form, atomic adds on the GPU)
+        computes the same deposit and gather as the dense (N, M) weights."""
+        x = jnp.asarray(_particles(rng), dtype=jnp.float32)
+        grid = make_grid(M, L)
+        if op == "deposit":
+            run = lambda method: deposit(x, grid, kind=kind, method=method)
+        else:
+            f = jnp.asarray(np.cos(2 * np.pi * 3 * np.arange(M) / M), dtype=jnp.float32)
+            run = lambda method: gather(f, x, grid, kind=kind, method=method)
+        np.testing.assert_allclose(np.asarray(run("scatter")), np.asarray(run("dense")),
+                                   rtol=1e-4, atol=1e-4)
+
+    @pytest.mark.parametrize("kind", ["cic", "tsc", "tsc_standard"])
+    def test_scatter_conserves_charge_on_cell_edges(self, kind):
+        """Particles exactly on cell edges, at 0 and just below L (the
+        periodic wrap) deposit their whole charge through the scatter path."""
+        grid = make_grid(M, L)
+        x = jnp.asarray(np.concatenate([np.arange(M) * grid.dx, [0.0, L - 1e-4, L / 2]]),
+                        dtype=jnp.float32)
+        n = deposit(x, grid, n0=1.0, kind=kind, method="scatter", normalize=False)
+        assert np.isfinite(np.asarray(n)).all()
+        assert abs(float(jnp.sum(n)) - x.shape[0]) < 1e-3
+
     def test_weights_partition_of_unity(self, rng):
         x = jnp.asarray(_particles(rng, n=100), dtype=jnp.float32)
         grid = make_grid(M, L)

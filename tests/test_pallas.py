@@ -1,83 +1,37 @@
-"""Pallas kernel tests (interpret mode on CPU; compiled path exercised by
-bench on real TPU)."""
+"""Whole-horizon spectral planner kernel: Pallas interpret mode and the
+kernel's Triton lowering on the CPU; tests marked ``gpu`` compile it for
+the card and skip here (``chip_smoke.py`` runs them on the GPU)."""
+
+import functools
 
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
-from plasma_control_tpu.ops.deposit import deposit, gather
+from plasma_control_tpu.config import ControlConfig, MPCConfig, SimConfig
+from plasma_control_tpu.control.actuator import make_actuator
+from plasma_control_tpu.control.mpc import _spectral_kernel_costs, candidate_costs
+from plasma_control_tpu.models.pic import init_state
 from plasma_control_tpu.ops.grid import make_grid
-from plasma_control_tpu.ops.pallas.cic_pallas import deposit_cic_pallas, gather_cic_pallas
+from plasma_control_tpu.ops.pallas import spectral_horizon as sh
 
-L, M = 50.0, 64
-
-
-class TestPallasCIC:
-    def test_deposit_matches_dense(self, rng):
-        x = jnp.asarray(rng.uniform(0, L, 700), dtype=jnp.float32)  # non-divisible N
-        grid = make_grid(M, L)
-        ref = deposit(x, grid, normalize=False)
-        got = deposit_cic_pallas(x, M, L, block_n=256, interpret=True)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-5, atol=1e-4)
-
-    def test_deposit_batched(self, rng):
-        x = jnp.asarray(rng.uniform(0, L, (4, 512)), dtype=jnp.float32)
-        grid = make_grid(M, L)
-        ref = jax.vmap(lambda xx: deposit(xx, grid, normalize=False))(x)
-        got = deposit_cic_pallas(x, M, L, block_n=256, interpret=True)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-5, atol=1e-4)
-
-    def test_gather_matches_dense(self, rng):
-        x = jnp.asarray(rng.uniform(0, L, 700), dtype=jnp.float32)
-        e = jnp.asarray(rng.standard_normal(M), dtype=jnp.float32)
-        grid = make_grid(M, L)
-        ref = gather(e, x, grid)
-        got = gather_cic_pallas(e, x, M, L, block_n=256, interpret=True)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-4, atol=1e-4)
-
-    def test_gather_batched(self, rng):
-        x = jnp.asarray(rng.uniform(0, L, (4, 512)), dtype=jnp.float32)
-        e = jnp.asarray(rng.standard_normal((4, M)), dtype=jnp.float32)
-        grid = make_grid(M, L)
-        ref = jax.vmap(lambda ee, xx: gather(ee, xx, grid))(e, x)
-        got = gather_cic_pallas(e, x, M, L, block_n=256, interpret=True)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-4, atol=1e-4)
-
-    def test_charge_conservation(self, rng):
-        x = jnp.asarray(rng.uniform(0, L, 1000), dtype=jnp.float32)
-        n = deposit_cic_pallas(x, M, L, interpret=True)
-        assert abs(float(jnp.sum(n)) - 1000.0) < 1e-2
+L = 50.0
 
 
-class TestPallasTSC:
-    """TSC (both the reference's shifted kernel and the textbook variant) on
-    the Pallas deposit/gather paths — parity debt from VERDICT r1 #8."""
+def _inputs(n, k, h, km, seed=3):
+    x = jax.random.uniform(jax.random.PRNGKey(seed), (n,)) * L
+    v = jax.random.normal(jax.random.PRNGKey(seed + 1), (n,)) * 2.0
+    u_c = 0.3 * jax.random.normal(jax.random.PRNGKey(seed + 2), (k, h, km))
+    u_s = 0.3 * jax.random.normal(jax.random.PRNGKey(seed + 3), (k, h, km))
+    return x, v, u_c, u_s
 
-    def test_tsc_deposit_matches_dense(self, rng):
-        x = jnp.asarray(rng.uniform(0, L, 700), dtype=jnp.float32)
-        grid = make_grid(M, L)
-        for kind in ("tsc", "tsc_standard"):
-            ref = deposit(x, grid, kind=kind, normalize=False)
-            got = deposit_cic_pallas(x, M, L, block_n=256, interpret=True, kind=kind)
-            np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-5, atol=1e-4)
 
-    def test_tsc_gather_matches_dense(self, rng):
-        x = jnp.asarray(rng.uniform(0, L, 700), dtype=jnp.float32)
-        e = jnp.asarray(rng.standard_normal(M), dtype=jnp.float32)
-        grid = make_grid(M, L)
-        for kind in ("tsc", "tsc_standard"):
-            ref = gather(e, x, grid, kind=kind)
-            got = gather_cic_pallas(e, x, M, L, block_n=256, interpret=True, kind=kind)
-            np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-4, atol=1e-4)
-
-    def test_tsc_through_deposit_api(self, rng):
-        """deposit()/gather() with method='pallas' accept every kind now."""
-        x = jnp.asarray(rng.uniform(0, L, 512), dtype=jnp.float32)
-        grid = make_grid(M, L)
-        for kind in ("tsc", "tsc_standard"):
-            ref = deposit(x, grid, kind=kind, method="dense")
-            got = deposit(x, grid, kind=kind, method="pallas")
-            np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-5, atol=1e-4)
+def _model(n, max_mode=2, simcase="two-stream"):
+    cfg = SimConfig(simcase=simcase, n_particles=n, n_mesh=32, dt=0.1,
+                    t_max=5.0, length=L)
+    act = make_actuator(cfg.length, cfg.n_mesh, max_mode)
+    return cfg, make_grid(cfg.n_mesh, cfg.length), act, init_state(cfg, jax.random.PRNGKey(0))
 
 
 class TestSpectralDrift:
@@ -86,169 +40,103 @@ class TestSpectralDrift:
     rotation instead of recomputing cos/sin of the wrapped position."""
 
     def test_rot_matches_trig(self):
-        from plasma_control_tpu.ops.pallas.spectral_horizon import fused_spectral_horizon
-
-        key = jax.random.PRNGKey(3)
         n, k, h, km = 384, 8, 6, 6
-        x = jax.random.uniform(key, (n,)) * L
-        v = jax.random.normal(jax.random.PRNGKey(4), (n,)) * 2.0
-        u_c = 0.3 * jax.random.normal(jax.random.PRNGKey(5), (k, h, km))
-        u_s = 0.3 * jax.random.normal(jax.random.PRNGKey(6), (k, h, km))
+        x, v, u_c, u_s = _inputs(n, k, h, km)
         kw = dict(length=L, dt=0.1, n0=1.0, n_particles=n, interpret=True)
-        pe_trig = np.asarray(fused_spectral_horizon(x, v, u_c, u_s, rot=False, **kw))
-        pe_rot = np.asarray(fused_spectral_horizon(x, v, u_c, u_s, rot=True, **kw))
+        pe_trig = np.asarray(sh.fused_spectral_horizon(x, v, u_c, u_s, rot=False, **kw))
+        pe_rot = np.asarray(sh.fused_spectral_horizon(x, v, u_c, u_s, rot=True, **kw))
         assert np.isfinite(pe_rot).all()
         np.testing.assert_allclose(pe_rot, pe_trig, rtol=2e-4, atol=1e-6)
 
     def test_auto_gate_is_static_on_angle_bound(self):
-        from plasma_control_tpu.ops.pallas.spectral_horizon import _use_rot
+        assert sh._use_rot(0.1, 50.0, 384 * 5000, "auto")     # |delta| << 1
+        assert not sh._use_rot(1.0, 5.0, 384 * 5000, "auto")  # 25σ sweeps > L/2
+        assert sh._use_rot(1.0, 5.0, 384 * 5000, "rot")       # explicit wins
+        assert not sh._use_rot(0.1, 50.0, 384 * 5000, "trig")
 
-        assert _use_rot(0.1, 50.0, "auto")     # reference shapes: |delta| << 1
-        assert not _use_rot(1.0, 5.0, "auto")  # pathological: 25σ sweeps > L/2
+    def test_auto_takes_trig_when_carry_leaves_l2(self):
+        """rot carries three planes, trig two: where rot's carry no longer
+        fits the L2 cache (config 4: K=384, N=100k, 460 MB) trig moves a
+        third fewer bytes through device memory and auto takes it."""
+        assert sh._use_rot(0.1, 50.0, 384 * 5000)          # config 3: 23 MB
+        assert not sh._use_rot(0.1, 50.0, 384 * 100_000)   # config 4
 
-    def test_default_auto_resolves_by_angle_bound(self):
-        """Quality-gate outcome (112 paired rollouts across all three
-        simcases, DEVNOTES 2026-08-21): rot is certified seed-paired equal,
-        so the default is 'auto' — rot at reference shapes, trig fallback
-        when the angle bound fails (pathological dt*L)."""
-        import os
+    @pytest.mark.parametrize("block", [128, 512])
+    def test_block_size_is_semantics_neutral(self, block):
+        """The particle chunk only changes the summation order of the mode
+        sums; N=700 leaves a masked tail in every chunk size."""
+        n, k, h, km = 700, 4, 4, 4
+        x, v, u_c, u_s = _inputs(n, k, h, km)
+        kw = dict(length=L, dt=0.1, n0=1.0, n_particles=n, rot=True, interpret=True)
+        ref = np.asarray(sh.fused_spectral_horizon(x, v, u_c, u_s, block=256, **kw))
+        got = np.asarray(sh.fused_spectral_horizon(x, v, u_c, u_s, block=block, **kw))
+        np.testing.assert_allclose(got, ref, rtol=1e-5)
 
-        from plasma_control_tpu.ops.pallas.spectral_horizon import _use_rot
+    def test_supported_gate_is_the_int32_index(self):
+        assert sh.spectral_horizon_supported(5000, 384)
+        assert sh.spectral_horizon_supported(1_000_000, 2048)
+        assert not sh.spectral_horizon_supported(10_000_000, 256)
 
-        if os.environ.get("PLASMA_SPECTRAL_DRIFT"):
-            pytest.skip("env override active")
-        assert _use_rot(0.1, 50.0)       # reference shapes: rot
-        assert not _use_rot(1.0, 5.0)    # pathological: trig fallback
-
-    def test_kb_default_heuristic(self):
-        """Shape/drift-aware measured-best candidate tile, VMEM-clamped
-        (experiments/bench_kb_rot_sweep.py + bench_config4_study.py)."""
-        from plasma_control_tpu.ops.pallas.spectral_horizon import (
-            _VMEM_SCRATCH_BUDGET, _kb_default)
-
-        assert _kb_default(5120, rot=True) == 32   # rot: taller tile wins
-        assert _kb_default(5120, rot=False) == 16  # trig at bench shapes
-        assert _kb_default(2176, rot=False) == 32  # trig at config-4 shapes
-        # tall shapes drop straight to KB=8: KB=16 at N_pad=10112 measured
-        # a 23.1 MB scoped-vmem compile OOM on v5e (round-4 config-2 bug)
-        assert _kb_default(10112, rot=True) == 8
-        assert _kb_default(10112, rot=False) == 8
-        big = 200_000
-        kb = _kb_default(big, rot=True)            # clamps to the budget
-        assert 8 * kb * big * 4 <= _VMEM_SCRATCH_BUDGET or kb == 8
-
-    def test_kb_env_override_respects_tall_ceiling(self, monkeypatch):
-        """A PLASMA_SPECTRAL_KB override must not bypass the empirical
-        tall-shape clamp — KB=16 at N_pad=10112 is the measured compile
-        OOM the clamp exists to prevent (review finding r4)."""
-        import plasma_control_tpu.ops.pallas.spectral_horizon as sh
-
-        monkeypatch.setattr(sh, "_KB", 16)
-        assert sh._kb_clamped(10112, rot=True) == 8
-        assert sh._kb_clamped(5120, rot=True) == 16  # override honored below
-        monkeypatch.setattr(sh, "_KB", None)
-        assert sh._kb_clamped(10112, rot=True) == 8
-
-    def test_supported_gate_tall_shapes(self):
-        """The empirical N_pad ceiling: 10k supported (KB=8, measured on
-        hardware), >12288 falls back to the XLA path under 'auto'."""
-        from plasma_control_tpu.ops.pallas.spectral_horizon import (
-            spectral_horizon_supported)
-
-        assert spectral_horizon_supported(10_000)
-        assert spectral_horizon_supported(12_288)
-        assert not spectral_horizon_supported(12_500)
-        assert not spectral_horizon_supported(100_000)
-
-    def test_kernel_correct_at_tall_shape_kb8(self):
-        """Semantics at the tall-shape KB=8 tile (the round-4 config-2
-        shape, interpret mode): kernel == streamed XLA spectral costs."""
-        import jax
-        from plasma_control_tpu.config import ControlConfig, MPCConfig, SimConfig
-        from plasma_control_tpu.control.mpc import candidate_costs
-        from plasma_control_tpu.control.actuator import make_actuator
-        from plasma_control_tpu.models.pic import init_state
-
-        cfg = SimConfig(simcase="bump-on-tail", n_particles=6000, n_mesh=64,
-                        dt=0.1, t_max=5.0, length=L)
-        grid = make_grid(cfg.n_mesh, cfg.length)
-        act = make_actuator(cfg.length, cfg.n_mesh, 2)
-        st = init_state(cfg, jax.random.PRNGKey(0))
+    @pytest.mark.parametrize("drift", ["rot", "trig"])
+    def test_kernel_correct_with_chunk_tail(self, drift):
+        """N=700 is not a multiple of the 256-particle chunk: the masked
+        tail must contribute nothing. Kernel costs == streamed XLA costs."""
+        cfg, grid, act, st = _model(700, simcase="bump-on-tail")
         cand = 0.3 * jax.random.normal(jax.random.PRNGKey(1), (8, 4, 4))
-        base = dict(horizon=4, n_candidates=8, plan_modes=4)
+        mpc = MPCConfig(horizon=4, n_candidates=8, plan_modes=4, spectral_drift=drift)
         c_xla = np.asarray(candidate_costs(
-            st, cand, grid, cfg, MPCConfig(**base, plan_kernel="xla"), act))
-        c_fused = np.asarray(candidate_costs(
-            st, cand, grid, cfg, MPCConfig(**base, plan_kernel="fused"), act))
-        np.testing.assert_allclose(c_fused, c_xla, rtol=2e-4, atol=1e-5)
-
-    def test_kb_is_semantics_neutral(self):
-        """Candidate tiling must not change results: per-candidate mode sums
-        reduce over the particle axis within a row, so KB only groups
-        independent rows. Bit-equal across tile sizes (interpret mode)."""
-        import plasma_control_tpu.ops.pallas.spectral_horizon as sh
-
-        key = jax.random.PRNGKey(3)
-        n, k, h, km = 300, 32, 4, 4
-        x = jax.random.uniform(key, (n,)) * L
-        v = jax.random.normal(jax.random.PRNGKey(4), (n,)) * 2.0
-        u_c = 0.3 * jax.random.normal(jax.random.PRNGKey(5), (k, h, km))
-        u_s = 0.3 * jax.random.normal(jax.random.PRNGKey(6), (k, h, km))
-        kw = dict(length=L, dt=0.1, n0=1.0, n_particles=n, interpret=True)
-        old = sh._KB
-        try:
-            pes = []
-            for kb in (8, 16, 32):
-                sh._KB = kb
-                pes.append(np.asarray(
-                    sh.fused_spectral_horizon(x, v, u_c, u_s, **kw)))
-        finally:
-            sh._KB = old
-        np.testing.assert_array_equal(pes[0], pes[1])
-        np.testing.assert_array_equal(pes[0], pes[2])
+            st, cand, grid, cfg, MPCConfig(horizon=4, n_candidates=8, plan_modes=4,
+                                           plan_kernel="xla"), act))
+        c_kernel = np.asarray(_spectral_kernel_costs(st, cand, cfg, mpc, act, interpret=True))
+        np.testing.assert_allclose(c_kernel, c_xla, rtol=2e-4, atol=1e-5)
 
     def test_config_plumbs_drift_choice(self):
-        """MPCConfig.spectral_drift reaches the kernel through
-        candidate_costs (rot vs trig produce the tested fp32-equal costs,
-        and an explicit 'rot' actually flips the code path)."""
-        from plasma_control_tpu.config import ControlConfig, MPCConfig, SimConfig
-        from plasma_control_tpu.control.actuator import make_actuator
-        from plasma_control_tpu.control.mpc import candidate_costs
-        from plasma_control_tpu.models.pic import init_state
-        from plasma_control_tpu.ops.grid import make_grid
-
-        cfg = SimConfig(n_particles=300, n_mesh=32, dt=0.1, t_max=5.0)
+        """MPCConfig.spectral_drift reaches the kernel (rot vs trig produce
+        the tested fp32-equal costs, and an explicit 'rot' actually flips
+        the code path)."""
         ctrl = ControlConfig(max_mode=2)
-        grid = make_grid(cfg.n_mesh, cfg.length)
-        act = make_actuator(cfg.length, cfg.n_mesh, ctrl.max_mode)
-        st = init_state(cfg, jax.random.PRNGKey(0))
+        cfg, grid, act, st = _model(300)
         cand = 0.3 * jax.random.normal(jax.random.PRNGKey(1), (8, 4, ctrl.n_actions))
         costs = {}
         for drift in ("trig", "rot"):
-            mpc = MPCConfig(horizon=4, n_candidates=8, plan_modes=4,
-                            plan_kernel="fused", spectral_drift=drift)
-            costs[drift] = np.asarray(candidate_costs(st, cand, grid, cfg, mpc, act))
+            mpc = MPCConfig(horizon=4, n_candidates=8, plan_modes=4, spectral_drift=drift)
+            costs[drift] = np.asarray(
+                _spectral_kernel_costs(st, cand, cfg, mpc, act, interpret=True))
         assert np.isfinite(costs["rot"]).all()
         np.testing.assert_allclose(costs["rot"], costs["trig"], rtol=2e-4, atol=1e-6)
         # not bit-identical: the rot path must actually be different code
         assert not np.array_equal(costs["rot"], costs["trig"])
 
 
-class TestCorrectedKbClamp:
-    def test_corrected_tile_respects_scoped_vmem_model(self):
-        """Twin-corrected kernels need ~35 live (KB, N_pad) scoped-vmem tile
-        planes vs the plain kernel's ~24 (measured OOM: corrected KB=32 at
-        N_pad=4224 hit 17.92M vs the 16M limit, 2026-08-21) — the clamp
-        bounds KB*N_pad <= ~114k for corrected launches and leaves plain
-        launches untouched."""
-        from plasma_control_tpu.ops.pallas.spectral_horizon import _kb_clamped
+class TestTritonLowering:
+    """The kernel lowers to Triton IR for the CUDA platform on the CPU: a
+    primitive the Triton route cannot express fails here, before the card."""
 
-        # the hardware-verified working corrected shape keeps its tile
-        assert _kb_clamped(2176, True, corrected=True) == 32
-        # the measured-OOM shape must clamp below 32
-        assert _kb_clamped(4224, True, corrected=True) <= 24
-        assert _kb_clamped(4224, True, corrected=True) * 4224 <= 114_688
-        # tall shapes stay at the r4 empirical ceiling
-        assert _kb_clamped(10112, True, corrected=True) == 8
-        # plain launches are unchanged by the corrected clamp
-        assert _kb_clamped(4224, True, corrected=False) == _kb_clamped(4224, True)
+    @pytest.mark.parametrize("rot,corrected", [(True, False), (False, False), (True, True)])
+    def test_lowers_for_cuda(self, rot, corrected):
+        n, k, h, km = 700, 8, 4, 4
+        x, v, u_c, u_s = _inputs(n, k, h, km)
+        twin = dict(twin_c=jnp.ones((h, km)), twin_s=jnp.ones((h, km))) if corrected else {}
+        fn = jax.jit(functools.partial(
+            sh.fused_spectral_horizon, length=L, dt=0.1, n0=1.0, n_particles=n, rot=rot))
+        text = fn.trace(x, v, u_c, u_s, **twin).lower(
+            lowering_platforms=("cuda",)).as_text()
+        assert "triton" in text
+
+
+@pytest.mark.gpu
+class TestCompiledOnCard:
+    """The kernel as compiled for the card against the Pallas interpreter
+    at small shapes (the interpreter is the CPU tests' reference)."""
+
+    @pytest.mark.parametrize("rot,corrected", [(True, False), (False, False), (True, True),
+                                               (False, True)])
+    def test_compiled_matches_interpreter(self, gpu, rot, corrected):
+        n, k, h, km = 700, 16, 5, 8
+        x, v, u_c, u_s = _inputs(n, k, h, km)
+        twin = dict(twin_c=0.5 * jnp.ones((h, km)), twin_s=0.5 * jnp.ones((h, km))) \
+            if corrected else {}
+        kw = dict(length=L, dt=0.1, n0=1.0, n_particles=n, rot=rot, **twin)
+        got = np.asarray(sh.fused_spectral_horizon(x, v, u_c, u_s, **kw))
+        ref = np.asarray(sh.fused_spectral_horizon(x, v, u_c, u_s, interpret=True, **kw))
+        np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-6)

@@ -155,10 +155,11 @@ class TestGSPMDCandidateSharding:
 
 
 class TestShardedFusedSpectral:
-    def test_sharded_costs_with_fused_spectral_kernel(self, devices8):
+    def test_sharded_costs_with_fused_spectral_kernel(self, devices8,
+                                                      spectral_kernel_interpreted):
         """candidate_costs under shard_map with the whole-horizon spectral
-        Pallas kernel (interpret mode on CPU): each device runs the kernel on
-        its local candidate block; costs match the unsharded XLA path."""
+        kernel (interpret mode on CPU): each device runs the kernel on its
+        local candidate block; costs match the unsharded XLA path."""
         from plasma_control_tpu.parallel.pic_shard import make_sharded_candidate_costs
 
         cfg = cfgs(n_particles=256)
@@ -200,9 +201,9 @@ class TestShardedFusedSpectral:
         np.testing.assert_allclose(c_sharded, c_ref, rtol=2e-4, atol=1e-6)
 
     def test_gspmd_constraint_path_rejects_pallas_kernels(self, devices8):
-        """plan(candidate_sharding=...) is the GSPMD path — Pallas planning
-        kernels only compose with multi-chip via shard_map (sharded_plan);
-        forcing one is a config error, and 'auto' silently uses XLA."""
+        """plan(candidate_sharding=...) is the GSPMD path — the planning
+        kernel only composes with several devices via shard_map
+        (sharded_plan); forcing it is a config error, and 'auto' uses XLA."""
         from jax.sharding import NamedSharding, PartitionSpec as P
 
         cfg = cfgs(n_particles=256)
@@ -270,9 +271,10 @@ class TestUnifiedShardedPlanner:
         a1, m1, b1 = plan_fn(st, mean, jnp.asarray(0.3), k)
         np.testing.assert_allclose(np.asarray(a1), np.asarray(a0), atol=1e-5)
 
-    def test_sharded_plan_with_fused_spectral_kernel(self, devices8):
-        """The Pallas whole-horizon kernel now has a closed multi-chip route
-        through the SAME planner (VERDICT r1 weak #4)."""
+    def test_sharded_plan_with_fused_spectral_kernel(self, devices8,
+                                                     spectral_kernel_interpreted):
+        """The whole-horizon kernel has a multi-device route through the
+        SAME planner."""
         from plasma_control_tpu.parallel.pic_shard import make_sharded_plan
 
         cfg, mpc, ctrl, grid, act, st = self._setup(plan_kernel="fused")
