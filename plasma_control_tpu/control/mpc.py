@@ -236,7 +236,7 @@ class MPCOutput(NamedTuple):
 def _reject_grid_pallas_kernel(plan_kernel: str) -> None:
     """The grid planner has only the XLA path; the one planning kernel is
     the spectral whole-horizon kernel (plan_model="spectral")."""
-    if plan_kernel in ("fused", "packed"):
+    if plan_kernel == "fused":
         raise ValueError(
             f"plan_kernel={plan_kernel!r}: the grid-planner has no kernel "
             "of its own. Use plan_kernel='xla'/'auto' for the grid model, or "
@@ -786,10 +786,6 @@ def candidate_costs(state, coeff_seqs, grid, cfg, mpc, actuator,
     LOCAL block (K / n_devices); padding composes there too (each device
     pads its own block).
     """
-    if mpc.plan_kernel == "packed":
-        # not constructible via the Literal/CLI; guards hand-built configs
-        # for every plan model
-        _reject_grid_pallas_kernel(mpc.plan_kernel)
     if mpc.plan_chunk is not None and coeff_seqs.shape[0] > mpc.plan_chunk:
         k_total = coeff_seqs.shape[0]
         chunk = int(mpc.plan_chunk)
@@ -1049,7 +1045,7 @@ def plan(
         # kernel on its local candidate block — parallel.pic_shard.
         # make_sharded_plan). Under the constraint path, "auto" falls back to
         # the XLA scan; an explicitly forced kernel is a config error.
-        if mpc.plan_kernel in ("fused", "packed"):
+        if mpc.plan_kernel == "fused":
             raise ValueError(
                 f"plan_kernel={mpc.plan_kernel!r} (Pallas) cannot be used with "
                 "candidate_sharding (GSPMD constraint path) — use "

@@ -52,7 +52,9 @@ __all__ = ["fused_spectral_horizon", "spectral_horizon_supported"]
 # constants), so the choice never recompiles per call.
 _V_SAFE = 25.0
 # The carried state that "auto" keeps for the rot drift: below the card's
-# 50 MB L2 with room for the rest of the solve.
+# 50 MB L2 with room for the rest of the solve. On an H100 (K=384, H=6,
+# Km=8) rot solved faster up to a 35 MB carry and trig at 46 and 69 MB; at
+# 92 MB rot led again by ~5%, at 460 MB (N=100k) trig by ~45%.
 _L2_CARRY_BYTES = 40 * 2**20
 # Particle chunk per loop iteration and warps per program. A chunk of 256
 # over 4 warps keeps each of the ~10 live chunk planes plus the 2*Km mode
@@ -204,8 +206,7 @@ def _kernel(
 
 @functools.partial(
     jax.jit,
-    static_argnames=("length", "dt", "n0", "n_particles", "interpret", "rot",
-                     "block"),
+    static_argnames=("length", "dt", "n0", "n_particles", "interpret", "rot"),
 )
 def fused_spectral_horizon(
     x0: jax.Array,  # (N,)
@@ -221,14 +222,12 @@ def fused_spectral_horizon(
     interpret: bool = False,
     twin_c: jax.Array | None = None,  # (H, Km) noise-correction target, or None
     twin_s: jax.Array | None = None,
-    block: int = _BLOCK,
 ) -> jax.Array:
     """(K, H) exact post-drift spectral-model field energies per candidate.
 
     With ``twin_c``/``twin_s`` set (``MPCConfig.plan_correction="twin"``),
     the returned energies are the CORRECTED |phasor - target|^2 form — see
-    :func:`plasma_control_tpu.control.mpc.twin_targets`. ``block`` is the
-    particle chunk of the inner loop (a power of two)."""
+    :func:`plasma_control_tpu.control.mpc.twin_targets`."""
     k_cand, horizon, km = u_c.shape
     n = n_particles
     f32 = jnp.float32
@@ -279,7 +278,7 @@ def fused_spectral_horizon(
         pe_scale=n0**2 / n,
         width=width,
         h_pad=h_pad,
-        block=block,
+        block=_BLOCK,
         rot=rot,
         corrected=corrected,
     )

@@ -150,19 +150,6 @@ class TestPlan:
             np.asarray(_mode_eval(c1, s1, pc, ps)), np.asarray(pc @ cb + ps @ sb),
             rtol=1e-4, atol=1e-4)
 
-    def test_spectral_rejects_packed_grid_kernel(self):
-        """'packed' names no kernel; 'fused' with the spectral model
-        dispatches the whole-horizon spectral kernel (TestFusedSpectral)."""
-        cfg = tiny_cfg()
-        grid = make_grid(cfg.n_mesh, cfg.length)
-        act = make_actuator(cfg.length, cfg.n_mesh, CTRL.max_mode)
-        st = init_state(cfg, jax.random.PRNGKey(0))
-        cand = 0.3 * jax.random.normal(jax.random.PRNGKey(1), (4, 3, 4))
-        with pytest.raises(ValueError, match="grid-planner"):
-            candidate_costs(
-                st, cand, grid, cfg,
-                MPCConfig(horizon=3, plan_model="spectral", plan_kernel="packed"), act)
-
     @pytest.mark.parametrize("algo", ["mppi", "cem"])
     def test_plan_returns_valid(self, algo):
         cfg = tiny_cfg()
